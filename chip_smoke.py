@@ -1,0 +1,399 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one NVIDIA GPU (written for an H100).
+
+Run from the root of a checkout, with no arguments:
+
+    python3 chip_smoke.py
+
+It drives ``helping_hand_for_egocentric_videos_torch`` (never JAX, never
+the JAX package) through these phases, each printing its own line; any
+failed check raises and the script exits non-zero:
+
+1. device: the CUDA device, or exit non-zero; the ``nvidia-smi`` name and
+   power limit; TF32 off for matmuls and convolutions.
+2. build: every ``csrc/*.cu`` with nvcc (one process per source, all
+   started together), with the build seconds and ptxas's register report.
+3. kernel vs plain: the divided-attention kernel in both modes at
+   (B=2, T=4) and the serving shape (B=8, T=16), N=256, H=16, dh=64, in
+   f32 and bf16, against the plain PyTorch version on the same inputs
+   (f32 atol 1e-4; bf16 against the plain version in f32 on the bf16
+   inputs, atol 2e-2): the patch output and the merged CLS output. The
+   inputs are seeded N(0, 1), so the logits have unit spread and the
+   softmax is far from uniform (qkv scaled by 0.1 would hide a wrong key
+   behind a near-uniform average). At
+   the serving shape in bf16 it times the kernel, the plain version, and
+   one ``F.scaled_dot_product_attention`` call over [CLS | group keys] as
+   a yardstick (the port never calls it), with CUDA events.
+4. serve: the full-width TimeSformer-L (16 frames) + object decoder from
+   seeded random weights behind ``ServingEngine`` and the HTTP server on
+   127.0.0.1; text, video, similarity and health requests from several
+   threads, then a closed loop of full-bucket video requests. The launch
+   counts are set to 0 just before and read just after: each video
+   forward must launch the kernel 24 times in each mode.
+5. end to end vs plain: the same 2 clips through the kernel path and
+   through the plain attention (``attention_backend="reference"``): f32
+   kernel vs f32 plain within 1e-3 x max|embedding|, bf16 kernel vs f32
+   plain with a cosine of at least 0.99 per clip.
+
+Then one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
+{...}}``. Time attention is zero-initialised in the model (its qkv feeds
+the kernel zeros), so the smoke gives its weights seeded N(0, 0.02) values.
+"""
+
+from __future__ import annotations
+
+import io
+import json
+import subprocess
+import sys
+import threading
+import time
+import urllib.request
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import replace
+
+import numpy as np
+
+SEED = 0
+N, HEADS, DH = 256, 16, 64
+D = HEADS * DH
+KERNEL_SHAPES = ((2, 4), (8, 16))  # (B, T); the last is the serving shape
+SERVE_T, RES = 16, 224
+BUCKETS = (1, 2, 4, 8)
+TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+REPO = "helping_hand_for_egocentric_videos_torch"
+TPU_KERNEL = "helping_hand_for_egocentric_videos_tpu/ops/divided_attention.py:103"
+# Dense peaks from NVIDIA's data sheets: memory bytes/s and ops/s by type.
+PEAKS = {
+    "sxm": {"bytes": 3.35e12, "bfloat16": 989e12, "float32": 67e12},
+    "pcie": {"bytes": 2.0e12, "bfloat16": 756e12, "float32": 51e12},
+}
+
+
+def say(phase: str, **kw):
+    print(f"[{phase}] " + json.dumps(kw), flush=True)
+
+
+def cuda_ms(fn, iters: int) -> float:
+    """Mean device time of ``fn`` in ms over ``iters`` back-to-back calls."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def phase_device():
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device; this smoke runs only on an NVIDIA GPU")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    name = torch.cuda.get_device_name(0)
+    say("device", name=name, count=torch.cuda.device_count(), card=card, torch=torch.__version__,
+        cuda=torch.version.cuda)
+    return name, card
+
+
+def phase_build():
+    from helping_hand_for_egocentric_videos_torch.ops import _build
+
+    t0 = time.perf_counter()
+    res = _build.build_all(verbose=True)
+    for name, r in res.items():
+        ptxas = [ln.strip() for ln in r["log"].splitlines() if "registers" in ln or "spill" in ln]
+        say("build", source=f"csrc/{name}.cu", seconds=round(r["seconds"], 3), ptxas=ptxas)
+    say("build", total_seconds=round(time.perf_counter() - t0, 3))
+
+
+def _sdpa_inputs(qkv, ck, cv, mode):
+    """Head-major q and [CLS | group] k, v for F.scaled_dot_product_attention."""
+    import torch
+
+    b, t, n, _ = qkv.shape
+    q, k, v = qkv.reshape(b, t, n, 3, HEADS, DH).unbind(3)
+    perm, g, w = ((0, 1, 3, 2, 4), t, n) if mode == "space" else ((0, 2, 3, 1, 4), n, t)
+
+    def grp(z):
+        return z.permute(*perm).reshape(b * g, HEADS, w, DH)
+
+    def with_cls(c, z):
+        c = c.reshape(b, 1, HEADS, 1, DH).expand(b, g, HEADS, 1, DH).reshape(b * g, HEADS, 1, DH)
+        return torch.cat([c, grp(z)], dim=2).contiguous()
+
+    return grp(q).contiguous(), with_cls(ck, k), with_cls(cv, v)
+
+
+def _bound_ms(qkv, mode, peaks) -> tuple[float, str]:
+    b, t, n, d3 = qkv.shape
+    es = qkv.element_size()
+    g, w = (t, n) if mode == "space" else (n, t)
+    nbytes = qkv.numel() * es + 3 * b * D * es + b * t * n * D * es + b * g * HEADS * (2 + DH) * 4
+    # QK and PV over w + 1 keys for every patch query, and the CLS query over w keys per group
+    flops = 4 * b * t * n * HEADS * DH * (w + 2)
+    by_bytes = nbytes / peaks["bytes"]
+    by_ops = flops / peaks[str(qkv.dtype).removeprefix("torch.")]
+    return 1e3 * max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
+
+
+def phase_kernels(device, peaks):
+    import torch
+    import torch.nn.functional as F
+
+    from helping_hand_for_egocentric_videos_torch.ops import divided_attention as da
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    report = {}
+    for mode in ("space", "time"):
+        checks = []
+        for b, t in KERNEL_SHAPES:
+            for dtype in (torch.float32, torch.bfloat16):
+                dname = str(dtype).removeprefix("torch.")
+                qkv = torch.randn(b, t, N, 3 * D, generator=gen, device=device).to(dtype)
+                ck, cv, cq = (torch.randn(b, D, generator=gen, device=device).to(dtype) for _ in range(3))
+                out, parts = da.divided_patch_attention(qkv, ck, cv, cq, mode=mode, heads=HEADS)
+                cls = da.merge_cls_partials(*parts, cq, ck, cv, HEADS)
+                f32 = [z.float() for z in (qkv, ck, cv, cq)]
+                ref, ref_parts = da.divided_patch_attention_ref(*f32, mode=mode, heads=HEADS)
+                ref_cls = da.merge_cls_partials(*ref_parts, *f32[3:], *f32[1:3], HEADS)
+                torch.cuda.synchronize()
+                err = max((out.float() - ref).abs().max().item(), (cls - ref_cls).abs().max().item())
+                finite = bool(torch.isfinite(out).all()) and bool(torch.isfinite(cls).all())
+                check = {"B": b, "T": t, "dtype": dname, "max_abs_err": err, "tolerance": TOL[dname]}
+                say("kernel-vs-plain", mode=mode, **check)
+                if not finite or not err <= TOL[dname]:
+                    raise AssertionError(f"{mode} kernel disagrees with the plain version: {check}")
+                checks.append(check)
+        # timing at the serving shape in the serving type (the last inputs made)
+        q, k, v = _sdpa_inputs(qkv, ck, cv, mode)
+        lib_out = F.scaled_dot_product_attention(q, k, v)
+        ms = cuda_ms(lambda: da.divided_patch_attention(qkv, ck, cv, cq, mode=mode, heads=HEADS), 20)
+        plain_ms = cuda_ms(lambda: da.divided_patch_attention_ref(qkv, ck, cv, cq, mode=mode, heads=HEADS), 5)
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20)
+        bound_ms, bound_by = _bound_ms(qkv, mode, peaks)
+        perm = (0, 1, 3, 2, 4) if mode == "space" else (0, 3, 1, 2, 4)
+        b, t = qkv.shape[:2]
+        g = t if mode == "space" else N
+        lib_as_out = lib_out.reshape(b, g, HEADS, -1, DH).permute(*perm).reshape(b, t, N, D)
+        report[mode] = {
+            "name": f"divided_attention_{mode}",
+            "route": "cuda",
+            "source": f"{REPO}/csrc/divided_attention.cu",
+            "replaces": TPU_KERNEL,
+            "launches": None,
+            "max_abs_err": checks[-1]["max_abs_err"],
+            "tolerance": checks[-1]["tolerance"],
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": library_ms,
+            "library_max_abs_err": (lib_as_out.float() - ref).abs().max().item(),
+            "timed_at": {"B": b, "T": t, "N": N, "H": HEADS, "dh": DH, "dtype": "bfloat16"},
+            "checks": checks,
+        }
+        say("kernel-timing", mode=mode, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+            bound_ms=bound_ms, bound_by=bound_by)
+        del qkv, ck, cv, cq, q, k, v, lib_out, ref, ref_parts
+        torch.cuda.empty_cache()
+    return report
+
+
+def build_serving_model(device):
+    import torch
+
+    from helping_hand_for_egocentric_videos_torch.data import ClipTokenizer
+    from helping_hand_for_egocentric_videos_torch.models import (
+        DecoderConfig,
+        Lavila,
+        ObjDecoder,
+        timesformer_large_config,
+    )
+    from helping_hand_for_egocentric_videos_torch.train import EvalModel
+
+    lcfg = timesformer_large_config(num_frames=SERVE_T)
+    dcfg = DecoderConfig(num_queries=13, feature_dim=1024, text_width=768, num_frames=SERVE_T,
+                         pred_traj=False)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    backbone = Lavila(lcfg, generator=gen, device=device)
+    decoder = ObjDecoder(dcfg, generator=gen, device=device)
+    with torch.no_grad():  # the smoke's choice of weights: a non-zero time attention
+        for blk in backbone.visual.blocks:
+            blk.timeattn.qkv.weight.normal_(0.0, 0.02, generator=gen)
+            blk.timeattn.proj.weight.normal_(0.0, 0.02, generator=gen)
+    return EvalModel(backbone, lcfg, decoder, dcfg, ClipTokenizer(), input_res=RES, device=device)
+
+
+def _request(base, path, body=None, content_type="application/json"):
+    t0 = time.perf_counter()
+    req = urllib.request.Request(base + path, data=body, headers={"Content-Type": content_type})
+    with urllib.request.urlopen(req, timeout=600) as r:
+        out = json.loads(r.read())
+        code = r.status
+    return {"path": path, "code": code, "seconds": time.perf_counter() - t0, "out": out}
+
+
+def _npy(a) -> bytes:
+    buf = io.BytesIO()
+    np.save(buf, a)
+    return buf.getvalue()
+
+
+def _check_embed_video(res, n, embed_dim, nq):
+    emb = np.asarray(res["out"]["embeddings"])
+    if res["code"] != 200 or emb.shape != (n, embed_dim) or not np.isfinite(emb).all():
+        raise AssertionError(f"bad /embed_video answer: code {res['code']}, shape {emb.shape}")
+    if "boxes" in res["out"]:
+        boxes = np.asarray(res["out"]["boxes"])
+        if boxes.shape != (n, nq, 4) or not (np.isfinite(boxes).all() and (0 <= boxes).all() and (boxes <= 1).all()):
+            raise AssertionError(f"bad boxes: shape {boxes.shape}")
+
+
+def phase_serve(model, card, device):
+    import torch
+
+    from helping_hand_for_egocentric_videos_torch.ops import divided_attention as da
+    from helping_hand_for_egocentric_videos_torch.serve import ServeConfig, ServingEngine
+    from helping_hand_for_egocentric_videos_torch.serve.server import make_server
+
+    t_frames, res = model.lavila_cfg.visual.num_frames, model.input_res
+    embed_dim, nq = model.dec_cfg.embed_dim, model.dec_cfg.num_queries
+    engine = ServingEngine(model, video_shape=(t_frames, res, res, 3), cfg=ServeConfig(buckets=BUCKETS))
+    srv = make_server(engine, "127.0.0.1", 0)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    rng = np.random.default_rng(SEED)
+
+    def clips(n):
+        return rng.integers(0, 256, size=(n, t_frames, res, res, 3), dtype=np.uint8)
+
+    try:
+        t0 = time.perf_counter()
+        engine.warmup()
+        warmup_s = time.perf_counter() - t0
+        texts = ["#C C cuts the onion on the board", "#C C opens the fridge", "wash hands"]
+        jobs = [
+            ("/embed_text", json.dumps({"texts": texts[:2]}).encode(), "application/json", None),
+            ("/embed_text", json.dumps({"texts": texts}).encode(), "application/json", None),
+            ("/embed_video?boxes=1", _npy(clips(1)), "application/x-npy", 1),
+            ("/embed_video", _npy(clips(3)), "application/x-npy", 3),
+            ("/embed_video?boxes=1", _npy(clips(8)), "application/x-npy", 8),
+        ]
+        buf = io.BytesIO()
+        np.savez(buf, video=clips(2), texts=np.asarray(texts[:2]))
+        loop = [_npy(clips(BUCKETS[-1])) for _ in range(4)]
+        torch.cuda.synchronize(device)
+        calls0 = engine.stats["video"].snapshot()["device_calls"]
+
+        # ---- the main path: counts set to 0 just before, read just after
+        da.divided_patch_attention.launches_space = 0
+        da.divided_patch_attention.launches_time = 0
+        with ThreadPoolExecutor(max_workers=len(jobs) + 2) as pool:
+            futs = [pool.submit(_request, base, p, body, ct) for p, body, ct, _ in jobs]
+            futs.append(pool.submit(_request, base, "/similarity", buf.getvalue(), "application/x-npz"))
+            futs.append(pool.submit(lambda: _request(base, "/healthz")))
+            concurrent = [f.result() for f in futs]
+        t0 = time.perf_counter()
+        closed = [_request(base, "/embed_video", body, "application/x-npy") for body in loop]
+        loop_s = time.perf_counter() - t0
+        torch.cuda.synchronize(device)
+        launches = {
+            "space": da.divided_patch_attention.launches_space,
+            "time": da.divided_patch_attention.launches_time,
+        }
+        video_calls = engine.stats["video"].snapshot()["device_calls"] - calls0
+        # ----
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        engine.close()
+        th.join(timeout=30)
+
+    for r, (_, _, _, n) in zip(concurrent, jobs):
+        if n is None:
+            emb = np.asarray(r["out"]["embeddings"])
+            if r["code"] != 200 or emb.shape[1:] != (embed_dim,) or not np.isfinite(emb).all():
+                raise AssertionError(f"bad /embed_text answer: {r['code']} {emb.shape}")
+        else:
+            _check_embed_video(r, n, embed_dim, nq)
+    sim = np.asarray(concurrent[-2]["out"]["sim"])
+    if sim.shape != (2, 2) or not (np.isfinite(sim).all() and (np.abs(sim) <= 1 + 1e-5).all()):
+        raise AssertionError(f"bad /similarity answer: {sim}")
+    health = concurrent[-1]["out"]
+    if health["status"] != "ok" or health["backend"] != torch.device(device).type:
+        raise AssertionError(f"bad /healthz answer: {health}")
+    for r in closed:
+        _check_embed_video(r, BUCKETS[-1], embed_dim, nq)
+    depth = model.lavila_cfg.visual.depth  # one launch per mode per block
+    if video_calls < 1 or launches != {"space": depth * video_calls, "time": depth * video_calls}:
+        raise AssertionError(f"{launches} launches for {video_calls} video forwards, want {depth} each per forward")
+
+    latency = [{"path": r["path"].split("?")[0], "seconds": r["seconds"]} for r in concurrent + closed]
+    clips_per_s = len(closed) * BUCKETS[-1] / loop_s
+    say("serve", card=card, warmup_seconds=warmup_s, video_forwards=video_calls, launches=launches,
+        launches_per_forward=depth,
+        closed_loop={"requests": len(closed), "clips_per_request": BUCKETS[-1], "seconds": loop_s,
+                     "clips_per_s": clips_per_s},
+        latency=latency)
+    return launches
+
+
+def phase_end_to_end(model, device):
+    import torch
+
+    from helping_hand_for_egocentric_videos_torch.train import EvalModel
+
+    lcfg = model.lavila_cfg
+    plain_cfg = replace(lcfg, visual=replace(lcfg.visual, attention_backend="reference"))
+    kw = dict(input_res=model.input_res, dtype=torch.float32, device=device)
+    k32 = EvalModel(model.backbone, lcfg, model.decoder, model.dec_cfg, model.tokenizer, **kw)
+    p32 = EvalModel(model.backbone, plain_cfg, model.decoder, model.dec_cfg, model.tokenizer, **kw)
+    rng = np.random.default_rng(SEED + 1)
+    t_frames, res = lcfg.visual.num_frames, model.input_res
+    clips = rng.integers(0, 256, size=(2, t_frames, res, res, 3), dtype=np.uint8)
+    plain, _ = p32.embed_video(clips)
+    kern32, _ = k32.embed_video(clips)
+    kern16, _ = model.embed_video(clips)
+    diff = float(np.abs(kern32 - plain).max())
+    limit = 1e-3 * float(np.abs(plain).max())
+    cos = (kern16 * plain).sum(-1) / (np.linalg.norm(kern16, axis=-1) * np.linalg.norm(plain, axis=-1))
+    say("end-to-end", f32_max_abs_diff=diff, f32_limit=limit, bf16_cosine=cos.tolist(), cosine_limit=0.99)
+    if not (np.isfinite(plain).all() and diff <= limit):
+        raise AssertionError(f"f32 kernel path vs plain: {diff} > {limit}")
+    if not (cos >= 0.99).all():
+        raise AssertionError(f"bf16 kernel path vs f32 plain: cosine {cos}")
+
+
+def main():
+    name, card = phase_device()
+    import torch
+
+    peaks = PEAKS["pcie" if "pcie" in name.lower() else "sxm"]
+    phase_build()
+    report = phase_kernels("cuda", peaks)
+    model = build_serving_model("cuda")
+    launches = phase_serve(model, card, "cuda")
+    phase_end_to_end(model, "cuda")
+    for mode in ("space", "time"):
+        report[mode]["launches"] = launches[mode]
+        report[mode]["card"] = card
+    print(json.dumps({"kernels": [report["space"], report["time"]]}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

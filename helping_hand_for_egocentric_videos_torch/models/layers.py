@@ -1,0 +1,103 @@
+"""NN primitives shared by the models.
+
+Counterpart of ``helping_hand_for_egocentric_videos_tpu/models/layers.py``.
+Parameters live in ``nn.Module`` containers (``nn.Linear`` with torch's
+(out, in) weight, ``nn.LayerNorm``, ``MultiheadAttention``); the forward
+math is plain functions over them, so each model's forward reads like its
+JAX counterpart. Weights are cast to the activations' type at use, which
+is free when they already match. Initialisers take a ``torch.Generator``
+and mirror the JAX ``*_init`` functions' distributions.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+__all__ = [
+    "linear_init",
+    "linear",
+    "layer_norm_init",
+    "layer_norm",
+    "quick_gelu",
+    "MultiheadAttention",
+    "multi_head_attention",
+]
+
+
+def linear_init(d_in: int, d_out: int, *, bias: bool = True, std: float | None = None,
+                generator=None, device=None) -> nn.Linear:
+    """Torch-Linear-style init: U(-1/sqrt(in), 1/sqrt(in)) weight, or
+    normal(std); the bias is always U(-1/sqrt(in), 1/sqrt(in))."""
+    lin = nn.utils.skip_init(nn.Linear, d_in, d_out, bias=bias, device=device or "cpu")
+    bound = d_in**-0.5
+    with torch.no_grad():
+        if std is None:
+            lin.weight.uniform_(-bound, bound, generator=generator)
+        else:
+            lin.weight.normal_(0.0, std, generator=generator)
+        if bias:
+            lin.bias.uniform_(-bound, bound, generator=generator)
+    return lin
+
+
+def linear(p: nn.Linear, x):
+    bias = None if p.bias is None else p.bias.to(x.dtype)
+    return F.linear(x, p.weight.to(x.dtype), bias)
+
+
+def layer_norm_init(dim: int, device=None) -> nn.LayerNorm:
+    """A parameter container (weight 1, bias 0); use ``layer_norm``."""
+    return nn.LayerNorm(dim, device=device)
+
+
+def layer_norm(p: nn.LayerNorm, x, eps: float = 1e-5):
+    """Statistics and affine in f32 even for bf16 activations; the result
+    is cast back to the input type."""
+    y = F.layer_norm(x.float(), x.shape[-1:], p.weight.float(), p.bias.float(), eps)
+    return y.to(x.dtype)
+
+
+def quick_gelu(x):
+    """OpenAI CLIP's QuickGELU: x * sigmoid(1.702 x)."""
+    return x * torch.sigmoid(1.702 * x)
+
+
+class MultiheadAttention(nn.Module):
+    """Per-matrix q/k/v/out projections (the JAX ``mha_init`` layout)."""
+
+    def __init__(self, dim: int, *, qkv_bias: bool = True, generator=None, device=None):
+        super().__init__()
+        kw = {"generator": generator, "device": device}
+        self.wq = linear_init(dim, dim, bias=qkv_bias, **kw)
+        self.wk = linear_init(dim, dim, bias=qkv_bias, **kw)
+        self.wv = linear_init(dim, dim, bias=qkv_bias, **kw)
+        self.wo = linear_init(dim, dim, bias=True, **kw)
+
+
+def _split_heads(x, num_heads: int):
+    b, n, d = x.shape
+    return x.reshape(b, n, num_heads, d // num_heads).transpose(1, 2)
+
+
+def _merge_heads(x):
+    b, h, n, dh = x.shape
+    return x.transpose(1, 2).reshape(b, n, h * dh)
+
+
+def multi_head_attention(p: MultiheadAttention, q_in, k_in, v_in, num_heads: int, mask=None):
+    """torch.nn.MultiheadAttention semantics, batch first.
+
+    q_in/k_in/v_in: (B, Nq/Nk, D). ``mask``: additive float mask
+    broadcastable to (B, H, Nq, Nk). The softmax runs in f32.
+    """
+    q = _split_heads(linear(p.wq, q_in), num_heads)
+    k = _split_heads(linear(p.wk, k_in), num_heads)
+    v = _split_heads(linear(p.wv, v_in), num_heads)
+    dh = q.shape[-1]
+    logits = (q @ k.transpose(-1, -2)) * (dh**-0.5)
+    if mask is not None:
+        logits = logits + mask
+    probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+    return linear(p.wo, _merge_heads(probs @ v))

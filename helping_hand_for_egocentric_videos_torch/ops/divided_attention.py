@@ -1,0 +1,175 @@
+"""Divided space-time attention on packed qkv, with its CUDA kernel.
+
+Counterpart of ``helping_hand_for_egocentric_videos_tpu/ops/divided_attention.py``.
+The patch queries of one group attend over [CLS key | the group's patch
+keys]; a group is one frame (``mode="space"``) or one patch tube across
+the frames (``mode="time"``). The CLS query, which attends over the whole
+``1 + T*N`` sequence, is assembled from per-group streaming-softmax
+partials by ``merge_cls_partials``.
+
+Three things live here:
+
+- ``divided_patch_attention_ref``: the plain PyTorch version. The CPU
+  tests compare it with the JAX kernel, and ``chip_smoke.py`` compares the
+  CUDA kernel with it on the card.
+- ``merge_cls_partials``: joins the partials of any number of groups with
+  the CLS self term.
+- ``divided_patch_attention``: the wrapper. A CUDA tensor goes to the
+  kernel in ``csrc/divided_attention.cu`` (or the call raises); a CPU
+  tensor goes to the plain version. Its launches are counted per mode in
+  the integer attributes ``launches_space`` and ``launches_time``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ._build import library
+
+__all__ = [
+    "divided_patch_attention",
+    "divided_patch_attention_ref",
+    "merge_cls_partials",
+]
+
+_MODES = ("space", "time")
+
+
+def _groups(x, mode: str):
+    """(B, T, N, H, dh) -> (B, G, H, W, dh): G groups of W rows."""
+    return x.permute(0, 1, 3, 2, 4) if mode == "space" else x.permute(0, 2, 3, 1, 4)
+
+
+def divided_patch_attention_ref(qkv, cls_k, cls_v, cls_q, *, mode: str, heads: int):
+    """Plain version, in f32 whatever the input type.
+
+    Args:
+        qkv: (B, T, N, 3D) packed [q|k|v] rows (q not scaled).
+        cls_k, cls_v, cls_q: (B, D) the CLS token's key, value and query.
+    Returns:
+        (B, T, N, D) patch output in the type of ``qkv``, and the CLS
+        query's partials (m, s, co) over each group's patch keys, with the
+        CLS self logit excluded: (B, G, H, 1), (B, G, H, 1), (B, G, H, dh)
+        f32, G = T (space) or N (time).
+    """
+    if mode not in _MODES:
+        raise ValueError(f"mode must be one of {_MODES}, got {mode!r}")
+    b, t, n, d3 = qkv.shape
+    d = d3 // 3
+    dh = d // heads
+    scale = dh**-0.5
+    q, k, v = (
+        _groups(z, mode)
+        for z in qkv.float().reshape(b, t, n, 3, heads, dh).unbind(3)
+    )  # (B, G, H, W, dh)
+    ck, cv, cq = (z.float().reshape(b, 1, heads, 1, dh) for z in (cls_k, cls_v, cls_q))
+
+    logits = scale * (q @ k.transpose(-1, -2))  # (B, G, H, W, W)
+    lc = scale * (q * ck).sum(-1, keepdim=True)  # CLS-key logit, (B, G, H, W, 1)
+    mx = torch.maximum(logits.amax(-1, keepdim=True), lc)
+    e_p = torch.exp(logits - mx)
+    e_c = torch.exp(lc - mx)
+    o = (e_p @ v + e_c * cv) / (e_p.sum(-1, keepdim=True) + e_c)
+    o = o.permute(0, 1, 3, 2, 4) if mode == "space" else o.permute(0, 3, 1, 2, 4)
+    out = o.reshape(b, t, n, d).to(qkv.dtype)
+
+    lq = scale * (cq * k).sum(-1)  # CLS-query logits over the group, (B, G, H, W)
+    pm = lq.amax(-1, keepdim=True)
+    e = torch.exp(lq - pm)
+    co = (e.unsqueeze(-2) @ v).squeeze(-2)  # (B, G, H, dh)
+    return out, (pm, e.sum(-1, keepdim=True), co)
+
+
+def merge_cls_partials(m, s, co, cls_q, cls_k, cls_v, heads: int):
+    """Combine per-group CLS partials with the CLS self-attention term.
+
+    m/s (B, G, H, 1) f32, co (B, G, H, dh) f32, any G; cls_q/k/v (B, D)
+    not scaled -> (B, D) f32 attention output of the CLS query over
+    [cls | all patch tokens].
+    """
+    b = m.shape[0]
+    m = m[..., 0]  # (B, G, H)
+    s = s[..., 0]
+    d = co.shape[-1] * heads
+    dh = d // heads
+    cqh, ckh, cvh = (z.reshape(b, heads, dh).float() for z in (cls_q, cls_k, cls_v))
+    scale = dh**-0.5
+    l_self = scale * (cqh * ckh).sum(-1)  # (B, H)
+
+    m_g = torch.maximum(m.amax(1), l_self)  # (B, H)
+    w = torch.exp(m - m_g[:, None, :])  # (B, G, H)
+    e_self = torch.exp(l_self - m_g)
+    denom = (s * w).sum(1) + e_self
+    num = (co * w[..., None]).sum(1) + e_self[..., None] * cvh
+    return (num / denom[..., None]).reshape(b, d)
+
+
+def _check_cuda_args(qkv, cls_k, cls_v, cls_q, heads: int):
+    if qkv.dim() != 4 or qkv.shape[-1] % (3 * heads):
+        raise ValueError(f"qkv must be (B, T, N, 3D) with D divisible by heads, got {tuple(qkv.shape)}")
+    if qkv.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the kernel takes float32 or bfloat16, got {qkv.dtype}")
+    b, _, _, d3 = qkv.shape
+    dh = d3 // 3 // heads
+    if dh not in (32, 64):
+        raise ValueError(f"the kernel takes head dims 32 and 64, got {dh}")
+    for name, z in (("qkv", qkv), ("cls_k", cls_k), ("cls_v", cls_v), ("cls_q", cls_q)):
+        if z.device != qkv.device:
+            raise ValueError(f"{name} is on {z.device}, qkv on {qkv.device}")
+        if z.dtype != qkv.dtype:
+            raise TypeError(f"{name} is {z.dtype}, qkv is {qkv.dtype}")
+        if not z.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if z is not qkv and tuple(z.shape) != (b, d3 // 3):
+            raise ValueError(f"{name} must be (B, D) = {(b, d3 // 3)}, got {tuple(z.shape)}")
+    return dh
+
+
+def _launch_kernel(qkv, cls_k, cls_v, cls_q, mode: str, heads: int):
+    dh = _check_cuda_args(qkv, cls_k, cls_v, cls_q, heads)
+    b, t, n, d3 = qkv.shape
+    g = t if mode == "space" else n
+    dev = qkv.device
+    out = torch.empty((b, t, n, d3 // 3), dtype=qkv.dtype, device=dev)
+    pm = torch.empty((b, g, heads, 1), dtype=torch.float32, device=dev)
+    ps = torch.empty((b, g, heads, 1), dtype=torch.float32, device=dev)
+    co = torch.empty((b, g, heads, dh), dtype=torch.float32, device=dev)
+
+    fn = library("divided_attention").hh_divided_attention
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        rc = fn(
+            qkv.data_ptr(), cls_q.data_ptr(), cls_k.data_ptr(), cls_v.data_ptr(),
+            out.data_ptr(), pm.data_ptr(), ps.data_ptr(), co.data_ptr(),
+            b, t, n, heads, dh, int(mode == "time"), int(qkv.dtype == torch.bfloat16),
+            dh**-0.5, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"divided_attention kernel launch failed: cudaError {rc}")
+    return out, (pm, ps, co)
+
+
+def divided_patch_attention(qkv, cls_k, cls_v, cls_q, *, mode: str, heads: int):
+    """Patch-token divided attention on packed qkv, with the CLS partials.
+
+    Same contract as ``divided_patch_attention_ref``. A CUDA tensor runs
+    the CUDA kernel (and raises what it does not take); a CPU tensor runs
+    the plain version.
+    """
+    if mode not in _MODES:
+        raise ValueError(f"mode must be one of {_MODES}, got {mode!r}")
+    if qkv.device.type == "cpu":
+        return divided_patch_attention_ref(qkv, cls_k, cls_v, cls_q, mode=mode, heads=heads)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"no divided-attention kernel for device {qkv.device}")
+    res = _launch_kernel(qkv, cls_k, cls_v, cls_q, mode, heads)
+    attr = f"launches_{mode}"
+    setattr(divided_patch_attention, attr, getattr(divided_patch_attention, attr) + 1)
+    return res
+
+
+divided_patch_attention.launches_space = 0
+divided_patch_attention.launches_time = 0
