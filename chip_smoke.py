@@ -24,16 +24,36 @@ failed check raises and the script exits non-zero:
    the serving shape in bf16 it times the kernel, the plain version, and
    one ``F.scaled_dot_product_attention`` call over [CLS | group keys] as
    a yardstick (the port never calls it), with CUDA events.
-4. serve: the full-width TimeSformer-L (16 frames) + object decoder from
+4. int8 kernels vs plain: K3 (the attention with its output quantized per
+   token, both modes), K4 (LayerNorm -> int8, D=1024) and K5 (QuickGELU ->
+   int8, D=4096) at (B=2, T=4) and the serving shape (B=8, T=16, N=256,
+   32768 rows), inputs seeded N(0, 1), the LayerNorm gamma 1 + 0.2 N(0, 1)
+   and beta 0.1 N(0, 1): scales within rtol 1e-5 of the plain version's,
+   codes within 1, at most 0.1% of the codes changed. At the serving shape
+   in bf16 each kernel and its plain version are timed with CUDA events.
+   Then ``torch._int_mm`` at the qkv shape (32768 x 1024 . 1024 x 3072),
+   in both operand layouts, beside ``F.linear`` in bf16, as a line of its
+   own (the port's int8 matmul is ``torch._int_mm``).
+5. serve: the full-width TimeSformer-L (16 frames) + object decoder from
    seeded random weights behind ``ServingEngine`` and the HTTP server on
    127.0.0.1; text, video, similarity and health requests from several
    threads, then a closed loop of full-bucket video requests. The launch
-   counts are set to 0 just before and read just after: each video
-   forward must launch the kernel 24 times in each mode.
-5. end to end vs plain: the same 2 clips through the kernel path and
+   counts of every kernel are set to 0 just before and read just after:
+   each video forward must launch K1 and K2 24 times each and K3-K5 never.
+6. serve int8: the same weights quantized (``EvalModel(int8=True)``), the
+   same requests; ``/healthz`` must say ``"int8": true`` and each video
+   forward must launch K3 24 times in each mode, K4 72 times, K5 24 times
+   and K1/K2 never.
+7. end to end vs plain: the same 2 clips through the kernel path and
    through the plain attention (``attention_backend="reference"``): f32
    kernel vs f32 plain within 1e-3 x max|embedding|, bf16 kernel vs f32
    plain with a cosine of at least 0.99 per clip.
+8. end to end int8: the same 2 clips through the int8 kernel path (the
+   fused route) and the int8 reference path (dynamic int8 at every
+   matmul, the JAX package's XLA route): cosine of at least 0.99 per
+   clip; and int8 kernel path vs bf16 kernel path with a cosine of at
+   least ``INT8_COS_FLOOR``, set before the first run on the card from the
+   JAX package's own int8-vs-f32 cosine (``tools/int8_cosine_floor.py``).
 
 Then one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Time attention is zero-initialised in the model (its qkv feeds
@@ -63,6 +83,13 @@ BUCKETS = (1, 2, 4, 8)
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 REPO = "helping_hand_for_egocentric_videos_torch"
 TPU_KERNEL = "helping_hand_for_egocentric_videos_tpu/ops/divided_attention.py:103"
+TPU_ACT_QUANT = "helping_hand_for_egocentric_videos_tpu/ops/act_quant.py"
+ROWS_SHAPES = ((2, 4), (8, 16))  # (B, T) of the int8 checks: B*T*N rows
+MLP = 4 * D
+# int8 kernel path vs bf16 kernel path, least cosine per clip: the JAX
+# package's own int8-vs-f32 cosine at full depth and width (4 frames, CPU,
+# tools/int8_cosine_floor.py) less a margin; see PERF.md
+INT8_COS_FLOOR = 0.9899
 # Dense peaks from NVIDIA's data sheets: memory bytes/s and ops/s by type.
 PEAKS = {
     "sxm": {"bytes": 3.35e12, "bfloat16": 989e12, "float32": 67e12},
@@ -136,11 +163,13 @@ def _sdpa_inputs(qkv, ck, cv, mode):
     return grp(q).contiguous(), with_cls(ck, k), with_cls(cv, v)
 
 
-def _bound_ms(qkv, mode, peaks) -> tuple[float, str]:
+def _bound_ms(qkv, mode, peaks, quant_out=False) -> tuple[float, str]:
     b, t, n, d3 = qkv.shape
     es = qkv.element_size()
     g, w = (t, n) if mode == "space" else (n, t)
-    nbytes = qkv.numel() * es + 3 * b * D * es + b * t * n * D * es + b * g * HEADS * (2 + DH) * 4
+    # the output: D values of the input type a token, or D codes and a scale
+    out_bytes = b * t * n * ((D + 4) if quant_out else D * es)
+    nbytes = qkv.numel() * es + 3 * b * D * es + out_bytes + b * g * HEADS * (2 + DH) * 4
     # QK and PV over w + 1 keys for every patch query, and the CLS query over w keys per group
     flops = 4 * b * t * n * HEADS * DH * (w + 2)
     by_bytes = nbytes / peaks["bytes"]
@@ -211,6 +240,145 @@ def phase_kernels(device, peaks):
     return report
 
 
+def _quant_check(got, want) -> dict:
+    """Quantized outputs (codes int8, scales f32) of a kernel against its
+    plain version on the same inputs."""
+    import torch
+
+    (q, s), (wq, ws) = got, want
+    diff = (q.int() - wq.int()).abs()
+    res = {
+        "scale_max_rel_err": ((s - ws).abs() / ws.abs()).max().item(),
+        "code_max_diff": diff.max().item(),
+        "codes_changed": diff.count_nonzero().item() / diff.numel(),
+        "max_abs_err": (q.float() * s - wq.float() * ws).abs().max().item(),
+        "finite": bool(torch.isfinite(s).all()),
+    }
+    res["ok"] = (res["finite"] and res["scale_max_rel_err"] <= 1e-5 and res["code_max_diff"] <= 1
+                 and res["codes_changed"] <= 1e-3)
+    return res
+
+
+def _rows_bound_ms(rows, d, in_bytes, ops_per_value, peaks) -> tuple[float, str]:
+    """A per-row quantizing pass: read the rows once, write a code a value
+    and a scale a row; f32 arithmetic outside the tensor cores."""
+    nbytes = rows * d * (in_bytes + 1) + rows * 4
+    by_bytes, by_ops = nbytes / peaks["bytes"], rows * d * ops_per_value / peaks["float32"]
+    return 1e3 * max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
+
+
+def phase_int8_kernels(device, peaks):
+    """K3 (both modes), K4 and K5 against their plain versions; timings at
+    the serving shape in bf16."""
+    import torch
+    from torch import nn
+
+    from helping_hand_for_egocentric_videos_torch.ops import act_quant as aq
+    from helping_hand_for_egocentric_videos_torch.ops import divided_attention as da
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    report = {}
+
+    def check(name, got, want, **shape):
+        res = _quant_check(got, want)
+        say("kernel-vs-plain", kernel=name, **shape, **res)
+        if not res["ok"]:
+            raise AssertionError(f"{name} disagrees with its plain version: {shape} {res}")
+        return res
+
+    def entry(name, source, replaces, last, timed, fn, plain, bound):
+        ms, plain_ms = cuda_ms(fn, 20), cuda_ms(plain, 5)
+        bound_ms, bound_by = bound
+        say("kernel-timing", kernel=name, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        return {
+            "name": name, "route": "cuda", "source": f"{REPO}/{source}", "replaces": replaces,
+            "launches": None, "max_abs_err": last["max_abs_err"],
+            "tolerance": "scales rtol 1e-5, codes within 1, <= 0.1% of codes changed",
+            "codes_changed": last["codes_changed"], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "timed_at": {**timed, "dtype": "bfloat16"},
+        }
+
+    # K3: the attention output quantized per token over all heads
+    for mode in ("space", "time"):
+        for b, t in KERNEL_SHAPES:
+            for dtype in ((torch.float32, torch.bfloat16) if b * t < 64 else (torch.bfloat16,)):
+                qkv = torch.randn(b, t, N, 3 * D, generator=gen, device=device).to(dtype)
+                ck, cv, cq = (torch.randn(b, D, generator=gen, device=device).to(dtype) for _ in range(3))
+                got, parts = da.divided_patch_attention(qkv, ck, cv, cq, mode=mode, heads=HEADS, quant_out=True)
+                _, parts0 = da.divided_patch_attention(qkv, ck, cv, cq, mode=mode, heads=HEADS)
+                want, _ = da.divided_patch_attention_ref(qkv, ck, cv, cq, mode=mode, heads=HEADS, quant_out=True)
+                torch.cuda.synchronize()
+                same = all(torch.equal(x, y) for x, y in zip(parts, parts0))
+                last = check(f"divided_attention_{mode}_int8", got, want, B=b, T=t,
+                             dtype=str(dtype).removeprefix("torch."), partials_as_without_quant=same)
+                if not same:
+                    raise AssertionError(f"K3 {mode}: the CLS partials differ from K1/K2's")
+        report[f"{mode}_int8"] = entry(
+            f"divided_attention_{mode}_int8", "csrc/divided_attention.cu",
+            "helping_hand_for_egocentric_videos_tpu/ops/divided_attention.py:243", last,
+            {"B": b, "T": t, "N": N, "H": HEADS, "dh": DH},
+            lambda: da.divided_patch_attention(qkv, ck, cv, cq, mode=mode, heads=HEADS, quant_out=True),
+            lambda: da.divided_patch_attention_ref(qkv, ck, cv, cq, mode=mode, heads=HEADS, quant_out=True),
+            _bound_ms(qkv, mode, peaks, quant_out=True),
+        )
+        del qkv, ck, cv, cq, got, want, parts, parts0
+        torch.cuda.empty_cache()
+
+    # K4 at D = 1024 and K5 at D = 4096, on B*T*N rows
+    ln = nn.LayerNorm(D, device=device)
+    with torch.no_grad():
+        ln.weight.copy_(1.0 + 0.2 * torch.randn(D, generator=gen, device=device))
+        ln.bias.copy_(0.1 * torch.randn(D, generator=gen, device=device))
+    for name, d, ops, fn, plain, line in (
+        ("layer_norm_int8", D, 14, lambda x: aq.layer_norm_int8(ln, x, 1e-6),
+         lambda x: aq.layer_norm_int8_ref(ln, x, 1e-6), 45),
+        ("quick_gelu_int8", MLP, 12, aq.quick_gelu_int8, aq.quick_gelu_int8_ref, 57),
+    ):
+        for b, t in ROWS_SHAPES:
+            for dtype in ((torch.float32, torch.bfloat16) if b * t < 64 else (torch.bfloat16,)):
+                x = torch.randn(b * t * N, d, generator=gen, device=device).to(dtype)
+                got, want = fn(x), plain(x)
+                torch.cuda.synchronize()
+                last = check(name, got, want, rows=x.shape[0], D=d, dtype=str(dtype).removeprefix("torch."))
+        report[name] = entry(
+            name, "csrc/act_quant.cu", f"{TPU_ACT_QUANT}:{line}", last, {"rows": x.shape[0], "D": d},
+            lambda: fn(x), lambda: plain(x), _rows_bound_ms(x.shape[0], d, x.element_size(), ops, peaks),
+        )
+        del x, got, want
+        torch.cuda.empty_cache()
+    return report
+
+
+def phase_int_mm(device, peaks):
+    """``torch._int_mm`` at the serving qkv shape in both layouts of the
+    weight, beside the bf16 ``F.linear`` of the same shape: a line of its
+    own (the port's int8 matmul; no kernel of the port)."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    m, k, n = 8 * SERVE_T * N, D, 3 * D
+    a = torch.randint(-127, 128, (m, k), generator=gen, device=device, dtype=torch.int8)
+    w = torch.randint(-127, 128, (n, k), generator=gen, device=device, dtype=torch.int8)
+    w_kn = w.t().contiguous()
+    exact = torch.equal(torch._int_mm(a[:64], w.t()), (a[:64].float() @ w.float().t()).int())
+    exact = exact and torch.equal(torch._int_mm(a[:64], w_kn), (a[:64].float() @ w_kn.float()).int())
+    x = torch.randn(m, k, generator=gen, device=device).to(torch.bfloat16)
+    wb = torch.randn(n, k, generator=gen, device=device).to(torch.bfloat16)
+    ms = {
+        "int_mm_w_nk_transposed": cuda_ms(lambda: torch._int_mm(a, w.t()), 20),
+        "int_mm_w_kn_contiguous": cuda_ms(lambda: torch._int_mm(a, w_kn), 20),
+        "linear_bf16": cuda_ms(lambda: F.linear(x, wb), 20),
+    }
+    ops = 2 * m * k * n
+    say("int-mm", M=m, K=k, N=n, exact=exact, ms=ms,
+        tops={key: ops / (v * 1e-3) / 1e12 for key, v in ms.items()},
+        bound_ms={"int8": 1e3 * ops / 1979e12, "bfloat16": 1e3 * ops / peaks["bfloat16"]})
+    if not exact:
+        raise AssertionError("torch._int_mm disagrees with an exact float product")
+
+
 def build_serving_model(device):
     import torch
 
@@ -261,10 +429,47 @@ def _check_embed_video(res, n, embed_dim, nq):
             raise AssertionError(f"bad boxes: shape {boxes.shape}")
 
 
+def _counters():
+    """Every kernel's launch count: (wrapper, attribute) by kernel name."""
+    from helping_hand_for_egocentric_videos_torch.ops import act_quant as aq
+    from helping_hand_for_egocentric_videos_torch.ops import divided_attention as da
+
+    f = da.divided_patch_attention
+    return {
+        "divided_attention_space": (f, "launches_space"),
+        "divided_attention_time": (f, "launches_time"),
+        "divided_attention_space_int8": (f, "launches_space_quant"),
+        "divided_attention_time_int8": (f, "launches_time_quant"),
+        "layer_norm_int8": (aq.layer_norm_int8, "launches"),
+        "quick_gelu_int8": (aq.quick_gelu_int8, "launches"),
+    }
+
+
+def reset_counts():
+    for obj, attr in _counters().values():
+        setattr(obj, attr, 0)
+
+
+def read_counts() -> dict:
+    return {name: getattr(obj, attr) for name, (obj, attr) in _counters().items()}
+
+
+def launches_per_forward(model) -> dict:
+    """What one video forward must launch: bf16, K1 and K2 once a block;
+    int8, K3 once a block in each mode, K4 three times and K5 once."""
+    depth = model.lavila_cfg.visual.depth
+    want = dict.fromkeys(_counters(), 0)
+    if model.int8:
+        want.update(divided_attention_space_int8=depth, divided_attention_time_int8=depth,
+                    layer_norm_int8=3 * depth, quick_gelu_int8=depth)
+    else:
+        want.update(divided_attention_space=depth, divided_attention_time=depth)
+    return want
+
+
 def phase_serve(model, card, device):
     import torch
 
-    from helping_hand_for_egocentric_videos_torch.ops import divided_attention as da
     from helping_hand_for_egocentric_videos_torch.serve import ServeConfig, ServingEngine
     from helping_hand_for_egocentric_videos_torch.serve.server import make_server
 
@@ -299,8 +504,7 @@ def phase_serve(model, card, device):
         calls0 = engine.stats["video"].snapshot()["device_calls"]
 
         # ---- the main path: counts set to 0 just before, read just after
-        da.divided_patch_attention.launches_space = 0
-        da.divided_patch_attention.launches_time = 0
+        reset_counts()
         with ThreadPoolExecutor(max_workers=len(jobs) + 2) as pool:
             futs = [pool.submit(_request, base, p, body, ct) for p, body, ct, _ in jobs]
             futs.append(pool.submit(_request, base, "/similarity", buf.getvalue(), "application/x-npz"))
@@ -310,10 +514,7 @@ def phase_serve(model, card, device):
         closed = [_request(base, "/embed_video", body, "application/x-npy") for body in loop]
         loop_s = time.perf_counter() - t0
         torch.cuda.synchronize(device)
-        launches = {
-            "space": da.divided_patch_attention.launches_space,
-            "time": da.divided_patch_attention.launches_time,
-        }
+        launches = read_counts()
         video_calls = engine.stats["video"].snapshot()["device_calls"] - calls0
         # ----
     finally:
@@ -333,18 +534,19 @@ def phase_serve(model, card, device):
     if sim.shape != (2, 2) or not (np.isfinite(sim).all() and (np.abs(sim) <= 1 + 1e-5).all()):
         raise AssertionError(f"bad /similarity answer: {sim}")
     health = concurrent[-1]["out"]
-    if health["status"] != "ok" or health["backend"] != torch.device(device).type:
+    if (health["status"] != "ok" or health["backend"] != torch.device(device).type
+            or health["int8"] is not model.int8):
         raise AssertionError(f"bad /healthz answer: {health}")
     for r in closed:
         _check_embed_video(r, BUCKETS[-1], embed_dim, nq)
-    depth = model.lavila_cfg.visual.depth  # one launch per mode per block
-    if video_calls < 1 or launches != {"space": depth * video_calls, "time": depth * video_calls}:
-        raise AssertionError(f"{launches} launches for {video_calls} video forwards, want {depth} each per forward")
+    per_forward = launches_per_forward(model)
+    if video_calls < 1 or launches != {k: v * video_calls for k, v in per_forward.items()}:
+        raise AssertionError(f"{launches} launches for {video_calls} video forwards, want {per_forward} per forward")
 
     latency = [{"path": r["path"].split("?")[0], "seconds": r["seconds"]} for r in concurrent + closed]
     clips_per_s = len(closed) * BUCKETS[-1] / loop_s
-    say("serve", card=card, warmup_seconds=warmup_s, video_forwards=video_calls, launches=launches,
-        launches_per_forward=depth,
+    say("serve-int8" if model.int8 else "serve", card=card, warmup_seconds=warmup_s,
+        video_forwards=video_calls, launches=launches, launches_per_forward=per_forward,
         closed_loop={"requests": len(closed), "clips_per_request": BUCKETS[-1], "seconds": loop_s,
                      "clips_per_s": clips_per_s},
         latency=latency)
@@ -377,20 +579,64 @@ def phase_end_to_end(model, device):
         raise AssertionError(f"bf16 kernel path vs f32 plain: cosine {cos}")
 
 
+def _cosine(a, b):
+    return (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
+
+
+def phase_end_to_end_int8(model8, model, device):
+    """The int8 kernel path against the int8 reference path and against
+    the bf16 kernel path, on the same 2 clips."""
+    from helping_hand_for_egocentric_videos_torch.train import EvalModel
+
+    lcfg = model.lavila_cfg
+    plain_cfg = replace(lcfg, visual=replace(lcfg.visual, attention_backend="reference"))
+    ref8 = EvalModel(model.backbone, plain_cfg, model.decoder, model.dec_cfg, model.tokenizer,
+                     input_res=model.input_res, device=device, int8=True)
+    rng = np.random.default_rng(SEED + 1)
+    t_frames, res = lcfg.visual.num_frames, model.input_res
+    clips = rng.integers(0, 256, size=(2, t_frames, res, res, 3), dtype=np.uint8)
+    kern8, _ = model8.embed_video(clips)
+    plain8, _ = ref8.embed_video(clips)
+    kern16, _ = model.embed_video(clips)
+    cos_ref, cos_bf16 = _cosine(kern8, plain8), _cosine(kern8, kern16)
+    say("end-to-end-int8", int8_kernel_vs_int8_reference_cosine=cos_ref.tolist(), reference_limit=0.99,
+        int8_kernel_vs_bf16_kernel_cosine=cos_bf16.tolist(), bf16_limit=INT8_COS_FLOOR)
+    if not (np.isfinite(kern8).all() and (cos_ref >= 0.99).all()):
+        raise AssertionError(f"int8 kernel path vs int8 reference path: cosine {cos_ref}")
+    if not (cos_bf16 >= INT8_COS_FLOOR).all():
+        raise AssertionError(f"int8 kernel path vs bf16 kernel path: cosine {cos_bf16} < {INT8_COS_FLOOR}")
+
+
 def main():
     name, card = phase_device()
     import torch
 
+    from helping_hand_for_egocentric_videos_torch.train import EvalModel
+
     peaks = PEAKS["pcie" if "pcie" in name.lower() else "sxm"]
     phase_build()
     report = phase_kernels("cuda", peaks)
+    report.update(phase_int8_kernels("cuda", peaks))
+    phase_int_mm("cuda", peaks)
     model = build_serving_model("cuda")
     launches = phase_serve(model, card, "cuda")
+    model8 = EvalModel(model.backbone, model.lavila_cfg, model.decoder, model.dec_cfg, model.tokenizer,
+                       input_res=model.input_res, device="cuda", int8=True)
+    launches8 = phase_serve(model8, card, "cuda")
     phase_end_to_end(model, "cuda")
-    for mode in ("space", "time"):
-        report[mode]["launches"] = launches[mode]
-        report[mode]["card"] = card
-    print(json.dumps({"kernels": [report["space"], report["time"]]}), flush=True)
+    phase_end_to_end_int8(model8, model, "cuda")
+    counts = {
+        "space": launches["divided_attention_space"], "time": launches["divided_attention_time"],
+        "space_int8": launches8["divided_attention_space_int8"],
+        "time_int8": launches8["divided_attention_time_int8"],
+        "layer_norm_int8": launches8["layer_norm_int8"], "quick_gelu_int8": launches8["quick_gelu_int8"],
+    }
+    for key, n in counts.items():
+        if n < 1:
+            raise AssertionError(f"{report[key]['name']} was not launched on the main path")
+        report[key]["launches"] = n
+        report[key]["card"] = card
+    print(json.dumps({"kernels": [report[k] for k in counts]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)
 

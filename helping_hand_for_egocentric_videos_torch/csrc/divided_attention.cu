@@ -39,10 +39,23 @@
 // its threads split the group's keys for the logits, reduce max and sum over
 // the block, then split the DH columns for the weighted sum of values.
 // Inputs may be f32 or bf16; every sum is f32; the output has the input type.
+//
+// K3 (`quant_out=True` of the same TPU kernel, replaces its in-VMEM
+// quantization of the output rows). The TPU program holds all heads of its
+// rows and takes max|row| over D; here a block holds one head, so no block
+// sees a whole row. K3 therefore runs in two launches: this kernel writes
+// the normalized per-head output in f32 to a (B, T, N, D) scratch (the
+// scale must come from the f32 output, before any bf16 rounding), then
+// row_quant.cuh's row kernel, the code K4 and K5 use, takes max|row| over
+// all heads and writes the int8 codes and f32 scales. Extra bytes against
+// a fused design: the f32 scratch is written and read once (2 x 134 MB at
+// the serving shape). The K1/K2 instantiations (TO = T) are unchanged.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include "row_quant.cuh"
 
 namespace {
 
@@ -74,11 +87,11 @@ __device__ float block_reduce(float v, bool is_max, float* red) {
   return v;
 }
 
-template <typename T, int DH>
+template <typename T, typename TO, int DH>
 __global__ void __launch_bounds__(MAX_QT)
 divided_attention_kernel(const T* __restrict__ qkv, const T* __restrict__ cls_q,
                          const T* __restrict__ cls_k, const T* __restrict__ cls_v,
-                         T* __restrict__ out, float* __restrict__ part_m,
+                         TO* __restrict__ out, float* __restrict__ part_m,
                          float* __restrict__ part_s, float* __restrict__ part_co,
                          int t_frames, int n_patches, int heads, int time_mode, float scale) {
   __shared__ __align__(16) float ks[KT][DH];
@@ -180,9 +193,9 @@ divided_attention_kernel(const T* __restrict__ qkv, const T* __restrict__ cls_q,
   }
 
   if (active) {
-    T* dst = out + (row0 + (long)qi * rstride) * d + hcol;
+    TO* dst = out + (row0 + (long)qi * rstride) * d + hcol;
 #pragma unroll
-    for (int c = 0; c < DH; ++c) dst[c] = from_f32<T>(acc[c] / l);
+    for (int c = 0; c < DH; ++c) dst[c] = from_f32<TO>(acc[c] / l);
   }
 
   if (blockIdx.x != 0) return;  // block-uniform: tile 0 owns the CLS partials
@@ -220,7 +233,8 @@ divided_attention_kernel(const T* __restrict__ qkv, const T* __restrict__ cls_q,
   }
 }
 
-template <typename T, int DH>
+// TO = T: the attention output (K1, K2); TO = float: K3's f32 rows.
+template <typename T, typename TO, int DH>
 int launch(const void* qkv, const void* cls_q, const void* cls_k, const void* cls_v, void* out,
            void* part_m, void* part_s, void* part_co, int batch, int t_frames, int n_patches,
            int heads, int time_mode, float scale, cudaStream_t stream) {
@@ -230,9 +244,9 @@ int launch(const void* qkv, const void* cls_q, const void* cls_k, const void* cl
     return (int)cudaErrorInvalidValue;
   const int nthr = w >= MAX_QT ? MAX_QT : ((w + 31) / 32) * 32;
   const dim3 grid((w + nthr - 1) / nthr, heads, (unsigned)groups);
-  divided_attention_kernel<T, DH><<<grid, nthr, 0, stream>>>(
+  divided_attention_kernel<T, TO, DH><<<grid, nthr, 0, stream>>>(
       static_cast<const T*>(qkv), static_cast<const T*>(cls_q), static_cast<const T*>(cls_k),
-      static_cast<const T*>(cls_v), static_cast<T*>(out), static_cast<float*>(part_m),
+      static_cast<const T*>(cls_v), static_cast<TO*>(out), static_cast<float*>(part_m),
       static_cast<float*>(part_s), static_cast<float*>(part_co), t_frames, n_patches, heads,
       time_mode, scale);
   return (int)cudaGetLastError();
@@ -249,7 +263,7 @@ extern "C" int hh_divided_attention(const void* qkv, const void* cls_q, const vo
                                     float scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define HH_LAUNCH(T, DH)                                                                  \
-  return launch<T, DH>(qkv, cls_q, cls_k, cls_v, out, part_m, part_s, part_co, batch,    \
+  return launch<T, T, DH>(qkv, cls_q, cls_k, cls_v, out, part_m, part_s, part_co, batch,    \
                        t_frames, n_patches, heads, time_mode, scale, st)
   if (is_bf16) {
     if (head_dim == 64) HH_LAUNCH(__nv_bfloat16, 64);
@@ -260,4 +274,33 @@ extern "C" int hh_divided_attention(const void* qkv, const void* cls_q, const vo
   }
 #undef HH_LAUNCH
   return (int)cudaErrorInvalidValue;
+}
+
+// K3. The same attention with its output quantized per token over all heads:
+// rows (B, T, N, D) f32 scratch, then codes (B, T, N, D) int8 and scales
+// (B, T, N) f32. Two launches on one stream; returns 0 or the first error.
+extern "C" int hh_divided_attention_int8(const void* qkv, const void* cls_q, const void* cls_k,
+                                         const void* cls_v, void* rows, void* codes,
+                                         void* scales, void* part_m, void* part_s, void* part_co,
+                                         int batch, int t_frames, int n_patches, int heads,
+                                         int head_dim, int time_mode, int is_bf16, float scale,
+                                         void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int rc = (int)cudaErrorInvalidValue;
+#define HH_LAUNCH(T, DH)                                                                    \
+  rc = launch<T, float, DH>(qkv, cls_q, cls_k, cls_v, rows, part_m, part_s, part_co, batch, \
+                            t_frames, n_patches, heads, time_mode, scale, st)
+  if (is_bf16) {
+    if (head_dim == 64) HH_LAUNCH(__nv_bfloat16, 64);
+    else if (head_dim == 32) HH_LAUNCH(__nv_bfloat16, 32);
+  } else {
+    if (head_dim == 64) HH_LAUNCH(float, 64);
+    else if (head_dim == 32) HH_LAUNCH(float, 32);
+  }
+#undef HH_LAUNCH
+  if (rc != 0) return rc;
+  return rowq::launch_rows<rowq::RowOp::kIdentity>(
+      static_cast<const float*>(rows), nullptr, nullptr, static_cast<int8_t*>(codes),
+      static_cast<float*>(scales), (long long)batch * t_frames * n_patches, heads * head_dim,
+      0.f, st);
 }

@@ -18,6 +18,7 @@ from .obj_decoder import (
     txt_proj,
     vid_proj,
 )
+from .quant import QuantLinear, cast_floats, quantize_lavila_params
 from .spacetime_vit import SpaceTimeConfig, SpaceTimeViT, spacetime_forward
 
 __all__ = [
@@ -41,6 +42,9 @@ __all__ = [
     "obj_proj",
     "txt_proj",
     "vid_proj",
+    "QuantLinear",
+    "cast_floats",
+    "quantize_lavila_params",
     "SpaceTimeConfig",
     "SpaceTimeViT",
     "spacetime_forward",

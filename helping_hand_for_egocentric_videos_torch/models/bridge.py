@@ -15,8 +15,18 @@ state dict of the port's modules:
 - the text and decoder attention keep per-matrix ``wq/wk/wv/wo`` Linears,
   while the visual tower keeps its packed ``qkv`` Linear: both are plain
   Linears to the bridge;
+- a quantized Linear ``{"w_q": (in, out) int8, "s_w": (out,), "b"?}``
+  (``quant.quantize_lavila_params`` of the JAX package), with the
+  fallback's ``"q_on"`` and float ``"w"`` where it has them, becomes the
+  buffers of a ``quant.QuantLinear``: ``w_q`` (out, in) int8, ``s_w``,
+  ``bias``, ``q_on`` and ``weight``; ``load_jax_params`` puts a
+  QuantLinear in the module wherever the tree has one, so a JAX-quantized
+  tree and a port-quantized module hold the same codes;
 - any other array (embeddings, projections, ``logit_scale``) is copied
   as it is.
+
+Float leaves become f32 tensors; int8 codes and bool flags keep their
+types.
 """
 
 from __future__ import annotations
@@ -27,6 +37,7 @@ from torch import nn
 
 from .lavila import Lavila, LavilaConfig
 from .obj_decoder import DecoderConfig, ObjDecoder
+from .quant import QuantLinear
 
 __all__ = ["jax_tree_to_state_dict", "load_jax_params", "from_jax_params"]
 
@@ -34,6 +45,9 @@ _STACKED = ("blocks", "layers")
 
 
 def _tensor(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype in (np.int8, np.bool_):
+        return torch.from_numpy(np.array(a))
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
@@ -47,6 +61,15 @@ def _index(tree, i: int):
 
 def _flatten(tree, prefix: str, out: dict):
     if isinstance(tree, dict):
+        if "w_q" in tree:  # quantized Linear (it may hold the fallback's "w" too)
+            out[prefix + "w_q"] = _tensor(tree["w_q"]).T.contiguous()
+            out[prefix + "s_w"] = _tensor(tree["s_w"])
+            if "b" in tree:
+                out[prefix + "bias"] = _tensor(tree["b"])
+            if "q_on" in tree:
+                out[prefix + "q_on"] = _tensor(tree["q_on"])
+                out[prefix + "weight"] = _tensor(tree["w"]).T.contiguous()
+            return
         if "w" in tree:  # Linear, (in, out) -> torch (out, in)
             out[prefix + "weight"] = _tensor(tree["w"]).T.contiguous()
             if "b" in tree:
@@ -85,8 +108,15 @@ def jax_tree_to_state_dict(tree) -> dict[str, torch.Tensor]:
 
 def load_jax_params(module: nn.Module, tree) -> nn.Module:
     """Load a JAX-layout tree into ``module``; every key and shape must
-    match (``strict``). Returns the module."""
-    module.load_state_dict(jax_tree_to_state_dict(tree), strict=True)
+    match (``strict``). Where the tree holds a quantized Linear, the
+    module's Linear is replaced by a ``QuantLinear``. Returns the module."""
+    sd = jax_tree_to_state_dict(tree)
+    for key in [k for k in sd if k.endswith(".w_q")]:
+        path = key[: -len(".w_q")]
+        parent, _, name = path.rpartition(".")
+        w_q, s_w, bias, weight, q_on = (sd.get(f"{path}.{f}") for f in ("w_q", "s_w", "bias", "weight", "q_on"))
+        setattr(module.get_submodule(parent), name, QuantLinear(w_q, s_w, bias, weight=weight, q_on=q_on))
+    module.load_state_dict(sd, strict=True)
     return module
 
 

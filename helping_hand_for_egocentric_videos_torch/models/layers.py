@@ -15,6 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .quant import QuantLinear, int8_linear, mixed_linear
+
 __all__ = [
     "linear_init",
     "linear",
@@ -42,7 +44,12 @@ def linear_init(d_in: int, d_out: int, *, bias: bool = True, std: float | None =
     return lin
 
 
-def linear(p: nn.Linear, x):
+def linear(p, x):
+    """``p`` an ``nn.Linear``, or a ``quant.QuantLinear`` (int8 weights):
+    with the fallback flag ``q_on`` it takes ``mixed_linear``, else the
+    dynamic-activation ``int8_linear``."""
+    if isinstance(p, QuantLinear):
+        return int8_linear(p, x) if p.q_on is None else mixed_linear(p, x)
     bias = None if p.bias is None else p.bias.to(x.dtype)
     return F.linear(x, p.weight.to(x.dtype), bias)
 

@@ -21,6 +21,19 @@ The CLS token is carried apart from the patch tokens through the tower
 ``ops.divided_attention.divided_patch_attention`` (the CUDA kernel on the
 card); ``"reference"`` runs ``_var_attention``, plain attention over the
 concatenated sequence, as the oracle.
+
+Int8 (a tower from ``quant.quantize_lavila_params``): ``linear`` takes the
+int8 matmul on every ``QuantLinear``. With the kernel backend and a pure
+int8 block (no fallback flag ``q_on``), the patch stream takes the fused
+route of the JAX package (its ``_block`` and ``_var_attention_pallas``):
+LayerNorm->int8 (K4) -> int8 qkv -> attention with its output quantized
+(K3) -> int8 proj, and LayerNorm->int8 -> int8 fc1 -> QuickGELU->int8 (K5)
+-> int8 fc2, so each matmul takes codes a kernel made. The fused route
+quantizes the f32 LayerNorm, GELU and attention outputs; the unfused
+route (``int8_linear``, the reference backend, every fallback tower)
+quantizes the activation after its rounding to the stream's type. The two
+round differently, so each backend takes the route its JAX counterpart
+takes. The CLS row always goes through ``linear``.
 """
 
 from __future__ import annotations
@@ -30,8 +43,10 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
+from ..ops.act_quant import layer_norm_int8, quick_gelu_int8
 from ..ops.divided_attention import divided_patch_attention, merge_cls_partials
 from .layers import layer_norm, layer_norm_init, linear, linear_init, quick_gelu
+from .quant import QuantLinear, int8_linear_prequant
 
 __all__ = ["SpaceTimeConfig", "SpaceTimeViT", "spacetime_forward", "patchify"]
 
@@ -152,24 +167,48 @@ def _var_attention(p: VarAttention, x, t: int, n: int, heads: int, mode: str):
     return linear(p.proj, out)
 
 
+def _pure_int8(lin) -> bool:
+    """An int8 matmul without the fallback flag: the fused route's input."""
+    return isinstance(lin, QuantLinear) and lin.q_on is None
+
+
 def _var_attention_split(p: VarAttention, x_cls, x_p, t: int, n: int, heads: int, mode: str, backend: str):
     """Divided attention on the split (cls, patches) representation.
 
-    Returns (cls_out (B, 1, D), patch_out (B, T*N, D)), after the output
-    projection. The patch qkv matmul's (B, T*N, 3D) output reshapes for
-    free into the kernel's (B, T, N, 3D) input.
+    ``x_p`` is the (B, T*N, D) patch stream, or on the fused int8 route its
+    (codes, scales) from ``layer_norm_int8``. Returns (cls_out (B, 1, D),
+    patch_out (B, T*N, D)), after the output projection. The patch qkv
+    matmul's (B, T*N, 3D) output reshapes for free into the kernel's
+    (B, T, N, 3D) input.
     """
     if backend == "reference":
         out = _var_attention(p, torch.cat([x_cls, x_p], dim=1), t, n, heads, mode)
         return out[:, :1], out[:, 1:]
     if backend != "kernel":
         raise ValueError(f"attention_backend must be one of {_BACKENDS}, got {backend!r}")
-    b, _, d = x_p.shape
-    qkv_p = linear(p.qkv, x_p).reshape(b, t, n, 3 * d)
+    if isinstance(x_p, tuple):  # codes and scales from layer_norm_int8
+        x_q, s_x = x_p
+        b, _, d = x_q.shape
+        qkv_p = int8_linear_prequant(p.qkv, x_q, s_x, out_dtype=x_cls.dtype)
+    else:
+        b, _, d = x_p.shape
+        qkv_p = linear(p.qkv, x_p)
+    qkv_p = qkv_p.reshape(b, t, n, 3 * d)
     cls_q, cls_k, cls_v = (z.contiguous() for z in linear(p.qkv, x_cls)[:, 0].split(d, dim=-1))
-    out_patch, (m, s, co) = divided_patch_attention(qkv_p, cls_k, cls_v, cls_q, mode=mode, heads=heads)
+    # a pure int8 proj takes the attention output as codes (K3)
+    quant_out = _pure_int8(p.proj)
+    out_patch, (m, s, co) = divided_patch_attention(
+        qkv_p, cls_k, cls_v, cls_q, mode=mode, heads=heads, quant_out=quant_out
+    )
     cls_out = merge_cls_partials(m, s, co, cls_q, cls_k, cls_v, heads).to(x_cls.dtype)[:, None, :]
-    return linear(p.proj, cls_out), linear(p.proj, out_patch.reshape(b, t * n, d))
+    if quant_out:
+        out_q, s_o = out_patch
+        patch_out = int8_linear_prequant(
+            p.proj, out_q.reshape(b, t * n, d), s_o.reshape(b, t * n, 1), out_dtype=x_cls.dtype
+        )
+    else:
+        patch_out = linear(p.proj, out_patch.reshape(b, t * n, d))
+    return linear(p.proj, cls_out), patch_out
 
 
 def _block(p: SpaceTimeBlock, x, cfg: SpaceTimeConfig, t: int, n: int):
@@ -177,15 +216,21 @@ def _block(p: SpaceTimeBlock, x, cfg: SpaceTimeConfig, t: int, n: int):
     eps = cfg.ln_eps
     be = cfg.attention_backend
     x_cls, x_p = x
+    # the fused int8 route of the patch stream (module docstring)
+    q_attn = be == "kernel" and _pure_int8(p.timeattn.qkv) and _pure_int8(p.attn.qkv)
+    q_mlp = be == "kernel" and _pure_int8(p.mlp_fc1) and _pure_int8(p.mlp_fc2)
+
+    def norm_patch(norm, z):
+        return layer_norm_int8(norm, z, eps) if q_attn else layer_norm(norm, z, eps)
 
     tc, tp = _var_attention_split(
-        p.timeattn, layer_norm(p.norm3, x_cls, eps), layer_norm(p.norm3, x_p, eps),
+        p.timeattn, layer_norm(p.norm3, x_cls, eps), norm_patch(p.norm3, x_p),
         t, n, cfg.heads, "time", be,
     )
     tr_cls, tr_p = x_cls + tc, x_p + tp
 
     sc, sp = _var_attention_split(
-        p.attn, layer_norm(p.norm1, tr_cls, eps), layer_norm(p.norm1, tr_p, eps),
+        p.attn, layer_norm(p.norm1, tr_cls, eps), norm_patch(p.norm1, tr_p),
         t, n, cfg.heads, "space", be,
     )
     # 'frozen-in-time' residual: from x, not from the time residual
@@ -195,7 +240,15 @@ def _block(p: SpaceTimeBlock, x, cfg: SpaceTimeConfig, t: int, n: int):
         h = layer_norm(p.norm2, z, eps)
         return z + linear(p.mlp_fc2, quick_gelu(linear(p.mlp_fc1, h)))
 
-    return mlp(sr_cls), mlp(sr_p)
+    def mlp_patch(z):
+        if not q_mlp:
+            return mlp(z)
+        h_q, h_s = layer_norm_int8(p.norm2, z, eps)
+        a = int8_linear_prequant(p.mlp_fc1, h_q, h_s, out_dtype=z.dtype)
+        g_q, g_s = quick_gelu_int8(a)
+        return z + int8_linear_prequant(p.mlp_fc2, g_q, g_s, out_dtype=z.dtype)
+
+    return mlp(sr_cls), mlp_patch(sr_p)
 
 
 def patchify(params: SpaceTimeViT, cfg: SpaceTimeConfig, video):

@@ -6,8 +6,9 @@ plain C interface (no PyTorch headers, so a build takes seconds):
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -o build/torch_kernels/lib<name>_<hash>.so csrc/<name>.cu
 
-The library is named by a hash of its source and the flags, so it is
-built at first use and rebuilt only when the source changes. The build
+The library is named by a hash of its source, the shared headers
+(``csrc/*.cuh``) and the flags, so it is built at first use and rebuilt
+only when one of them changes. The build
 directory sits in the checkout's ``build/``, which git ignores. Nothing
 is built or loaded when this module is imported.
 """
@@ -49,6 +50,8 @@ def _nvcc() -> str:
 def _target(name: str) -> tuple[Path, Path]:
     src = SOURCES / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
+    for hdr in sorted(SOURCES.glob("*.cuh")):
+        h.update(hdr.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return src, BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 

@@ -17,7 +17,10 @@ Three things live here:
 - ``divided_patch_attention``: the wrapper. A CUDA tensor goes to the
   kernel in ``csrc/divided_attention.cu`` (or the call raises); a CPU
   tensor goes to the plain version. Its launches are counted per mode in
-  the integer attributes ``launches_space`` and ``launches_time``.
+  the integer attributes ``launches_space`` and ``launches_time`` (K1,
+  K2), and, with ``quant_out=True`` (K3: the output quantized per token to
+  int8 for the int8 projection), ``launches_space_quant`` and
+  ``launches_time_quant``.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import ctypes
 import torch
 
 from ._build import library
+from .act_quant import MAX_WIDTH, quantize_rows_ref
 
 __all__ = [
     "divided_patch_attention",
@@ -42,17 +46,21 @@ def _groups(x, mode: str):
     return x.permute(0, 1, 3, 2, 4) if mode == "space" else x.permute(0, 2, 3, 1, 4)
 
 
-def divided_patch_attention_ref(qkv, cls_k, cls_v, cls_q, *, mode: str, heads: int):
+def divided_patch_attention_ref(qkv, cls_k, cls_v, cls_q, *, mode: str, heads: int,
+                                quant_out: bool = False):
     """Plain version, in f32 whatever the input type.
 
     Args:
         qkv: (B, T, N, 3D) packed [q|k|v] rows (q not scaled).
         cls_k, cls_v, cls_q: (B, D) the CLS token's key, value and query.
+        quant_out: quantize each token's f32 output over all D channels
+            (``quantize_rows_ref``) instead of casting it.
     Returns:
-        (B, T, N, D) patch output in the type of ``qkv``, and the CLS
-        query's partials (m, s, co) over each group's patch keys, with the
-        CLS self logit excluded: (B, G, H, 1), (B, G, H, 1), (B, G, H, dh)
-        f32, G = T (space) or N (time).
+        (B, T, N, D) patch output in the type of ``qkv``, or with
+        ``quant_out`` (codes int8 (B, T, N, D), scales f32 (B, T, N, 1));
+        and the CLS query's partials (m, s, co) over each group's patch
+        keys, with the CLS self logit excluded: (B, G, H, 1), (B, G, H, 1),
+        (B, G, H, dh) f32, G = T (space) or N (time).
     """
     if mode not in _MODES:
         raise ValueError(f"mode must be one of {_MODES}, got {mode!r}")
@@ -73,7 +81,8 @@ def divided_patch_attention_ref(qkv, cls_k, cls_v, cls_q, *, mode: str, heads: i
     e_c = torch.exp(lc - mx)
     o = (e_p @ v + e_c * cv) / (e_p.sum(-1, keepdim=True) + e_c)
     o = o.permute(0, 1, 3, 2, 4) if mode == "space" else o.permute(0, 3, 1, 2, 4)
-    out = o.reshape(b, t, n, d).to(qkv.dtype)
+    o = o.reshape(b, t, n, d)
+    out = quantize_rows_ref(o) if quant_out else o.to(qkv.dtype)
 
     lq = scale * (cq * k).sum(-1)  # CLS-query logits over the group, (B, G, H, W)
     pm = lq.amax(-1, keepdim=True)
@@ -127,23 +136,35 @@ def _check_cuda_args(qkv, cls_k, cls_v, cls_q, heads: int):
     return dh
 
 
-def _launch_kernel(qkv, cls_k, cls_v, cls_q, mode: str, heads: int):
+def _launch_kernel(qkv, cls_k, cls_v, cls_q, mode: str, heads: int, quant_out: bool):
     dh = _check_cuda_args(qkv, cls_k, cls_v, cls_q, heads)
     b, t, n, d3 = qkv.shape
+    d = d3 // 3
     g = t if mode == "space" else n
     dev = qkv.device
-    out = torch.empty((b, t, n, d3 // 3), dtype=qkv.dtype, device=dev)
     pm = torch.empty((b, g, heads, 1), dtype=torch.float32, device=dev)
     ps = torch.empty((b, g, heads, 1), dtype=torch.float32, device=dev)
     co = torch.empty((b, g, heads, dh), dtype=torch.float32, device=dev)
-
-    fn = library("divided_attention").hh_divided_attention
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+    lib = library("divided_attention")
+    if quant_out:
+        # K3: f32 rows in a scratch, then the row pass quantizes each token
+        # over all heads (a block of the attention kernel holds one head)
+        if d > MAX_WIDTH:
+            raise ValueError(f"quant_out takes D <= {MAX_WIDTH}, got {d}")
+        rows = torch.empty((b, t, n, d), dtype=torch.float32, device=dev)
+        codes = torch.empty((b, t, n, d), dtype=torch.int8, device=dev)
+        scales = torch.empty((b, t, n, 1), dtype=torch.float32, device=dev)
+        fn, bufs, out = lib.hh_divided_attention_int8, (rows, codes, scales), (codes, scales)
+    else:
+        out = torch.empty((b, t, n, d), dtype=qkv.dtype, device=dev)
+        fn, bufs = lib.hh_divided_attention, (out,)
+    nptr = 4 + len(bufs) + 3
+    fn.argtypes = [ctypes.c_void_p] * nptr + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         rc = fn(
             qkv.data_ptr(), cls_q.data_ptr(), cls_k.data_ptr(), cls_v.data_ptr(),
-            out.data_ptr(), pm.data_ptr(), ps.data_ptr(), co.data_ptr(),
+            *(z.data_ptr() for z in bufs), pm.data_ptr(), ps.data_ptr(), co.data_ptr(),
             b, t, n, heads, dh, int(mode == "time"), int(qkv.dtype == torch.bfloat16),
             dh**-0.5, torch.cuda.current_stream(dev).cuda_stream,
         )
@@ -152,7 +173,8 @@ def _launch_kernel(qkv, cls_k, cls_v, cls_q, mode: str, heads: int):
     return out, (pm, ps, co)
 
 
-def divided_patch_attention(qkv, cls_k, cls_v, cls_q, *, mode: str, heads: int):
+def divided_patch_attention(qkv, cls_k, cls_v, cls_q, *, mode: str, heads: int,
+                            quant_out: bool = False):
     """Patch-token divided attention on packed qkv, with the CLS partials.
 
     Same contract as ``divided_patch_attention_ref``. A CUDA tensor runs
@@ -162,14 +184,17 @@ def divided_patch_attention(qkv, cls_k, cls_v, cls_q, *, mode: str, heads: int):
     if mode not in _MODES:
         raise ValueError(f"mode must be one of {_MODES}, got {mode!r}")
     if qkv.device.type == "cpu":
-        return divided_patch_attention_ref(qkv, cls_k, cls_v, cls_q, mode=mode, heads=heads)
+        return divided_patch_attention_ref(qkv, cls_k, cls_v, cls_q, mode=mode, heads=heads,
+                                           quant_out=quant_out)
     if qkv.device.type != "cuda":
         raise ValueError(f"no divided-attention kernel for device {qkv.device}")
-    res = _launch_kernel(qkv, cls_k, cls_v, cls_q, mode, heads)
-    attr = f"launches_{mode}"
+    res = _launch_kernel(qkv, cls_k, cls_v, cls_q, mode, heads, quant_out)
+    attr = f"launches_{mode}" + ("_quant" if quant_out else "")
     setattr(divided_patch_attention, attr, getattr(divided_patch_attention, attr) + 1)
     return res
 
 
 divided_patch_attention.launches_space = 0
 divided_patch_attention.launches_time = 0
+divided_patch_attention.launches_space_quant = 0
+divided_patch_attention.launches_time_quant = 0

@@ -9,11 +9,12 @@ Counterpart of ``EvalModel`` in
 The visual tower runs in ``dtype`` (bf16 by default) with its divided
 attention in the CUDA kernel; the text tower and the decoder run in f32
 on the tower's f32 output. uint8 clips are preprocessed on the device.
+``int8=True`` quantizes the visual tower's block matmuls
+(``models/quant.py``; the int8 kernels K3, K4 and K5 on its patch stream),
+with the per-block float fallback above ``int8_fallback``.
 """
 
 from __future__ import annotations
-
-import copy
 
 import numpy as np
 import torch
@@ -22,6 +23,7 @@ from ..device import resolve_device
 from ..models.clip_text import encode_text
 from ..models.lavila import Lavila, LavilaConfig
 from ..models.obj_decoder import DecoderConfig, ObjDecoder, decoder_forward, obj_proj, txt_proj
+from ..models.quant import cast_floats, quantize_lavila_params
 from ..models.spacetime_vit import spacetime_forward
 from ..ops.preprocess import resize_normalize, shortside_centercrop_normalize
 
@@ -36,6 +38,10 @@ class EvalModel:
     ``device=None`` means the CUDA device, and raises if there is none;
     pass ``device="cpu"`` to run on the CPU. The modules are moved to the
     device; the visual tower is copied in ``dtype`` when that is not f32.
+    ``int8``: serve a copy of the backbone whose visual block matmuls are
+    quantized from its f32 weights; ``int8_fallback``: the gamma-spread
+    threshold above which a block keeps its float matmuls (None: every
+    block is int8). The weight scales stay f32 in the ``dtype`` copy.
     """
 
     def __init__(
@@ -50,6 +56,8 @@ class EvalModel:
         preprocess: str = "resize",  # 'resize' (squash) | 'shortside' (EGTEA 1-crop)
         dtype=torch.bfloat16,
         device=None,
+        int8: bool = False,
+        int8_fallback: float | None = None,
     ):
         if preprocess not in _PREPROCESS:
             raise ValueError(f"preprocess must be one of {_PREPROCESS}, got {preprocess!r}")
@@ -60,10 +68,15 @@ class EvalModel:
         self.input_res = input_res
         self.preprocess = preprocess
         self.dtype = dtype
-        self.backbone = backbone.to(self.device).eval()
+        self.int8 = bool(int8)
+        self.int8_fallback = int8_fallback
+        backbone = backbone.to(self.device)
+        if self.int8:  # quantize the f32 weights, then cast
+            backbone = quantize_lavila_params(backbone, act_outlier_threshold=int8_fallback)
+        self.backbone = backbone.eval()
         self.decoder = decoder.to(self.device).eval()
         visual = self.backbone.visual
-        self.visual = visual if dtype == torch.float32 else copy.deepcopy(visual).to(dtype)
+        self.visual = visual if dtype == torch.float32 else cast_floats(visual, dtype)
 
     def embed_text(self, texts: list[str]) -> np.ndarray:
         return self.embed_tokens(np.asarray(self.tokenizer(texts)))

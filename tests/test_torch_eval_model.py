@@ -5,6 +5,12 @@ by ``from_jax_params``), in f32; the JAX tower runs its Pallas kernel in
 interpret mode, the port its kernel wrapper (the plain version on the
 CPU). Text embeddings, video embeddings and boxes agree to 1e-4, for the
 'resize' and 'shortside' preprocessing.
+
+With ``int8=True`` each side quantizes its own f32 weights (the codes are
+equal, ``test_torch_quant.py``) and the video embeddings agree to
+1e-2 x max|embedding| (a value on a rounding boundary may take the
+neighbouring code, ``test_torch_spacetime_vit.py``), pure int8 and with a
+fallback threshold that sends one block to its float matmuls.
 """
 
 from dataclasses import replace
@@ -80,6 +86,34 @@ def test_video_embeddings_and_boxes_match_jax(models, prep):
     assert emb.shape == (2, 32) and boxes.shape == (2, 13, 4)
     np.testing.assert_allclose(emb, want_emb, atol=ATOL)
     np.testing.assert_allclose(boxes, want_boxes, atol=ATOL)
+
+
+INT8_RTOL = 1e-2
+
+
+@pytest.mark.parametrize("fallback", [None, 4.0], ids=["pure", "fallback"])
+def test_int8_video_embeddings_match_jax(fallback):
+    jcfg, backbone, decoder = _jax_trees()
+    g = backbone["visual"]["blocks"]["norm2"]["g"] = np.array(backbone["visual"]["blocks"]["norm2"]["g"])
+    g[0, :3] = 16.0  # block 0 falls back at 4.0
+    jax_model = JaxEvalModel(
+        backbone_params=backbone,
+        lavila_cfg=replace(jcfg, visual=replace(jcfg.visual, attention_backend="pallas_interpret")),
+        decoder_params=decoder, dec_cfg=jod.DecoderConfig(**DEC), tokenizer=JaxTokenizer(),
+        dtype=jnp.float32, int8=True, int8_fallback=fallback,
+    )
+    cfg, dcfg = timesformer_tiny_config(num_frames=T), DecoderConfig(**DEC)
+    bb, dec = from_jax_params(backbone, decoder, cfg, dcfg)
+    port = EvalModel(bb, cfg, dec, dcfg, ClipTokenizer(), dtype=torch.float32, device="cpu",
+                     int8=True, int8_fallback=fallback)
+    assert port.int8 and port.visual.blocks[0].mlp_fc1.w_q.dtype == torch.int8
+    assert (port.visual.blocks[0].mlp_fc1.q_on is None) == (fallback is None)
+    video = (np.random.default_rng(5).random((2, T, 224, 224, 3)) * 255).astype(np.uint8)
+    emb, boxes = port.embed_video(video)
+    want_emb, want_boxes = jax_model.embed_video(video)
+    assert emb.shape == (2, 32) and np.isfinite(emb).all()
+    np.testing.assert_allclose(emb, want_emb, atol=INT8_RTOL * np.abs(want_emb).max())
+    np.testing.assert_allclose(boxes, want_boxes, atol=INT8_RTOL * np.abs(want_boxes).max())
 
 
 def test_eval_model_rejects_unknown_preprocess(models):

@@ -3,7 +3,8 @@
 - Every module of the port imports with JAX made unimportable, and loads
   nothing of the JAX package; no source of the port, nor chip_smoke.py,
   names either in an import statement (lazy imports included).
-- The kernel wrapper has no ``try`` to fall back from the kernel.
+- The kernel wrappers, and the int8 model code that calls them, have no
+  ``try`` to fall back from a kernel.
 - Without CUDA, the default entry points raise and chip_smoke.py exits
   non-zero, in the repo and in a directory that holds only the script.
 """
@@ -65,6 +66,12 @@ def test_every_port_module_imports_without_jax():
 def test_kernel_wrapper_has_no_fallback():
     tree = ast.parse((PORT / "ops" / "divided_attention.py").read_text())
     assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+
+
+def test_act_quant_wrappers_and_int8_model_code_have_no_fallback():
+    for rel in ("ops/act_quant.py", "models/quant.py", "models/spacetime_vit.py"):
+        tree = ast.parse((PORT / rel).read_text())
+        assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)], rel
 
 
 @pytest.fixture

@@ -32,7 +32,7 @@ T, RES = 4, 28
 CLIP = (T, RES, RES, 3)
 
 
-def tiny_eval_model():
+def tiny_eval_model(**kw):
     lcfg = LavilaConfig(
         visual=SpaceTimeConfig(img_size=RES, patch_size=14, width=32, depth=2, heads=4, num_frames=T),
         text=TextConfig(width=32, heads=4, layers=2, embed_dim=16),
@@ -50,7 +50,7 @@ def tiny_eval_model():
             blk.timeattn.qkv.weight.normal_(0.0, 0.1, generator=g)
             blk.timeattn.proj.weight.normal_(0.0, 0.1, generator=g)
     return EvalModel(backbone, lcfg, decoder, dcfg, ClipTokenizer(), input_res=RES,
-                     dtype=torch.float32, device="cpu")
+                     dtype=torch.float32, device="cpu", **kw)
 
 
 def _clips(n, seed=0):
@@ -188,6 +188,33 @@ def test_http_server_end_to_end(model):
         engine.close()  # engine failure -> structured 500, never a dropped socket
         code, out = _post(base + "/embed_text", json.dumps({"texts": texts}).encode())
         assert code == 500 and "engine closed" in out["error"]
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        engine.close()
+        th.join(timeout=30)
+    assert not th.is_alive()
+
+
+def test_http_healthz_reports_int8_and_serves_it():
+    """An int8 EvalModel behind the engine: /healthz says so, and a video
+    request returns what the model computes."""
+    model = tiny_eval_model(int8=True)
+    engine = ServingEngine(model, video_shape=CLIP, cfg=ServeConfig(buckets=(1, 2)))
+    srv = make_server(engine, "127.0.0.1", 0)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        with urllib.request.urlopen(base + "/healthz", timeout=30) as r:
+            health = json.loads(r.read())
+        assert health["status"] == "ok" and health["int8"] is True
+        video = _clips(2, seed=4)
+        buf = io.BytesIO()
+        np.save(buf, video)
+        code, out = _post(base + "/embed_video", buf.getvalue(), "application/x-npy")
+        assert code == 200
+        np.testing.assert_allclose(np.asarray(out["embeddings"]), model.embed_video(video)[0], atol=1e-5)
     finally:
         srv.shutdown()
         srv.server_close()
