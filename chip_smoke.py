@@ -55,6 +55,25 @@ failed check raises and the script exits non-zero:
    least ``INT8_COS_FLOOR``, set before the first run on the card from the
    JAX package's own int8-vs-f32 cosine (``tools/int8_cosine_floor.py``).
 
+9. head-grid kernel vs plain: K6, the time attention of long clips, at
+   (B=1, T=128), (B=2, T=128) and forced at (B=2, T=16), N=256, H=16,
+   dh=64, f32 and bf16, inputs seeded N(0, 1), against its plain version
+   with the tolerances of phase 3; at (B=2, T=128) in bf16 the kernel, the
+   plain version and one SDPA call over [CLS | tube] are timed.
+10. serve-long: synthetic checkpoints in the reference's layout, at the
+   full width of TimeSformer-L (4 frames, as LaviLa releases it) and of the
+   13-query decoder (4 frames, with its trajectory head), written under
+   ``build/``; ``cli.serve.main`` serves them at ``--num_frames 128``
+   (both temporal embeddings inflated) with buckets (1, 2), once in bf16
+   and once with ``--int8``: /embed_text, /embed_video with 1 and 2 clips,
+   /healthz. The converted weights must equal the written ones. Each video
+   forward must launch, in bf16, K1 and K6 24 times and K2 never; with
+   ``--int8``, K3-space and K6 24 times, K4 48, K5 24 and K3-time, K1, K2
+   never: the JAX package's route at T=128 (``launches_per_forward``
+   derives it from the model's own ``_kernel_friendly``).
+11. end to end at T=128: phases 7 and 8 on the served models, 2 clips of
+   128 frames.
+
 Then one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Time attention is zero-initialised in the model (its qkv feeds
 the kernel zeros), so the smoke gives its weights seeded N(0, 0.02) values.
@@ -64,13 +83,16 @@ from __future__ import annotations
 
 import io
 import json
+import re
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import replace
+from pathlib import Path
 
 import numpy as np
 
@@ -85,6 +107,10 @@ REPO = "helping_hand_for_egocentric_videos_torch"
 TPU_KERNEL = "helping_hand_for_egocentric_videos_tpu/ops/divided_attention.py:103"
 TPU_ACT_QUANT = "helping_hand_for_egocentric_videos_tpu/ops/act_quant.py"
 ROWS_SHAPES = ((2, 4), (8, 16))  # (B, T) of the int8 checks: B*T*N rows
+HEADGRID_SHAPES = ((1, 128), (2, 128), (2, 16))  # (B, T); T=16 forced, T=128 the long clips
+TPU_HEADGRID = "helping_hand_for_egocentric_videos_tpu/ops/divided_attention.py:312"
+LONG_T, LONG_BUCKETS, CKPT_T = 128, (1, 2), 4
+BUILD = Path(__file__).resolve().parent / "build"
 MLP = 4 * D
 # int8 kernel path vs bf16 kernel path, least cosine per clip: the JAX
 # package's own int8-vs-f32 cosine at full depth and width (4 frames, CPU,
@@ -350,6 +376,61 @@ def phase_int8_kernels(device, peaks):
     return report
 
 
+def phase_headgrid(device, peaks):
+    """K6 against its plain version; timing at (B=2, T=128) in bf16."""
+    import torch
+    import torch.nn.functional as F
+
+    from helping_hand_for_egocentric_videos_torch.ops import divided_attention as da
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    checks = []
+    for b, t in HEADGRID_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).removeprefix("torch.")
+            qkv = torch.randn(b, t, N, 3 * D, generator=gen, device=device).to(dtype)
+            ck, cv, cq = (torch.randn(b, D, generator=gen, device=device).to(dtype) for _ in range(3))
+            out, parts = da.divided_patch_attention(qkv, ck, cv, cq, mode="time", heads=HEADS, head_grid=True)
+            cls = da.merge_cls_partials(*parts, cq, ck, cv, HEADS)
+            f32 = [z.float() for z in (qkv, ck, cv, cq)]
+            ref, ref_parts = da.time_attention_headgrid_ref(*f32, heads=HEADS)
+            ref_cls = da.merge_cls_partials(*ref_parts, *f32[3:], *f32[1:3], HEADS)
+            torch.cuda.synchronize()
+            err = max((out.float() - ref).abs().max().item(), (cls - ref_cls).abs().max().item())
+            finite = bool(torch.isfinite(out).all()) and bool(torch.isfinite(cls).all())
+            check = {"B": b, "T": t, "dtype": dname, "head_grid_by_default": da.needs_head_grid(t, N, HEADS),
+                     "max_abs_err": err, "tolerance": TOL[dname]}
+            say("kernel-vs-plain", kernel="time_attention_headgrid", **check)
+            if not finite or not err <= TOL[dname] or tuple(parts[0].shape) != (b, N, HEADS, 1):
+                raise AssertionError(f"the head-grid kernel disagrees with its plain version: {check}")
+            checks.append(check)
+            if (b, t, dtype) == (2, LONG_T, torch.bfloat16):
+                timed = (qkv, ck, cv, cq, ref, check)
+            del qkv, ck, cv, cq, out, parts, ref, ref_parts, f32
+    qkv, ck, cv, cq, ref, check = timed
+    q, k, v = _sdpa_inputs(qkv, ck, cv, "time")
+    lib_out = F.scaled_dot_product_attention(q, k, v)
+    ms = cuda_ms(lambda: da.divided_patch_attention(qkv, ck, cv, cq, mode="time", heads=HEADS), 20)
+    plain_ms = cuda_ms(lambda: da.time_attention_headgrid_ref(qkv, ck, cv, cq, heads=HEADS), 5)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20)
+    bound_ms, bound_by = _bound_ms(qkv, "time", peaks)
+    b, t = qkv.shape[:2]
+    lib_as_out = lib_out.reshape(b, N, HEADS, t, DH).permute(0, 3, 1, 2, 4).reshape(b, t, N, D)
+    say("kernel-timing", kernel="time_attention_headgrid", ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        bound_ms=bound_ms, bound_by=bound_by)
+    entry = {
+        "name": "time_attention_headgrid", "route": "cuda",
+        "source": f"{REPO}/csrc/divided_attention_long.cu", "replaces": TPU_HEADGRID,
+        "launches": None, "max_abs_err": check["max_abs_err"], "tolerance": check["tolerance"],
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": library_ms, "library_max_abs_err": (lib_as_out.float() - ref).abs().max().item(),
+        "timed_at": {"B": b, "T": t, "N": N, "H": HEADS, "dh": DH, "dtype": "bfloat16"}, "checks": checks,
+    }
+    del timed, qkv, ck, cv, cq, ref, q, k, v, lib_out, lib_as_out
+    torch.cuda.empty_cache()
+    return entry
+
+
 def phase_int_mm(device, peaks):
     """``torch._int_mm`` at the serving qkv shape in both layouts of the
     weight, beside the bf16 ``F.linear`` of the same shape: a line of its
@@ -442,6 +523,7 @@ def _counters():
         "divided_attention_time_int8": (f, "launches_time_quant"),
         "layer_norm_int8": (aq.layer_norm_int8, "launches"),
         "quick_gelu_int8": (aq.quick_gelu_int8, "launches"),
+        "time_attention_headgrid": (f, "launches_time_headgrid"),
     }
 
 
@@ -455,15 +537,31 @@ def read_counts() -> dict:
 
 
 def launches_per_forward(model) -> dict:
-    """What one video forward must launch: bf16, K1 and K2 once a block;
-    int8, K3 once a block in each mode, K4 three times and K5 once."""
-    depth = model.lavila_cfg.visual.depth
+    """What one video forward must launch, once a block each: the time
+    kernel is K6 where ``needs_head_grid`` holds, else K2; space attention
+    is K1. A pure int8 tower takes the JAX package's route per mode, from
+    the model's own ``_kernel_friendly``: a fused mode runs K4 then K3, a
+    fused MLP K4 then K5; an unfused mode runs K1, K2 or K6. At 16 frames
+    that is K3 24 + 24, K4 72, K5 24; at 128 frames K3-space 24, K6 24,
+    K4 48, K5 24."""
+    from helping_hand_for_egocentric_videos_torch.models.spacetime_vit import _kernel_friendly
+    from helping_hand_for_egocentric_videos_torch.ops.divided_attention import needs_head_grid
+
+    cfg = model.lavila_cfg.visual
+    depth, t, n, d = cfg.depth, cfg.num_frames, cfg.patches_per_frame, cfg.width
+    plain = {"space": "divided_attention_space",
+             "time": "time_attention_headgrid" if needs_head_grid(t, n, cfg.heads) else "divided_attention_time"}
     want = dict.fromkeys(_counters(), 0)
-    if model.int8:
-        want.update(divided_attention_space_int8=depth, divided_attention_time_int8=depth,
-                    layer_norm_int8=3 * depth, quick_gelu_int8=depth)
-    else:
-        want.update(divided_attention_space=depth, divided_attention_time=depth)
+    fused = {m: model.int8 and d % 128 == 0 and _kernel_friendly(n, d, cfg.heads, t, m) for m in plain}
+    for m, kernel in plain.items():
+        if fused[m]:
+            want[f"divided_attention_{m}_int8"] += depth
+            want["layer_norm_int8"] += depth
+        else:
+            want[kernel] += depth
+    if fused["space"]:  # the MLP: K4 -> fc1 -> K5 -> fc2
+        want["layer_norm_int8"] += depth
+        want["quick_gelu_int8"] += depth
     return want
 
 
@@ -553,7 +651,7 @@ def phase_serve(model, card, device):
     return launches
 
 
-def phase_end_to_end(model, device):
+def phase_end_to_end(model, device, phase="end-to-end"):
     import torch
 
     from helping_hand_for_egocentric_videos_torch.train import EvalModel
@@ -572,7 +670,8 @@ def phase_end_to_end(model, device):
     diff = float(np.abs(kern32 - plain).max())
     limit = 1e-3 * float(np.abs(plain).max())
     cos = (kern16 * plain).sum(-1) / (np.linalg.norm(kern16, axis=-1) * np.linalg.norm(plain, axis=-1))
-    say("end-to-end", f32_max_abs_diff=diff, f32_limit=limit, bf16_cosine=cos.tolist(), cosine_limit=0.99)
+    say(phase, frames=t_frames, f32_max_abs_diff=diff, f32_limit=limit, bf16_cosine=cos.tolist(),
+        cosine_limit=0.99)
     if not (np.isfinite(plain).all() and diff <= limit):
         raise AssertionError(f"f32 kernel path vs plain: {diff} > {limit}")
     if not (cos >= 0.99).all():
@@ -583,7 +682,7 @@ def _cosine(a, b):
     return (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
 
 
-def phase_end_to_end_int8(model8, model, device):
+def phase_end_to_end_int8(model8, model, device, phase="end-to-end-int8"):
     """The int8 kernel path against the int8 reference path and against
     the bf16 kernel path, on the same 2 clips."""
     from helping_hand_for_egocentric_videos_torch.train import EvalModel
@@ -599,12 +698,178 @@ def phase_end_to_end_int8(model8, model, device):
     plain8, _ = ref8.embed_video(clips)
     kern16, _ = model.embed_video(clips)
     cos_ref, cos_bf16 = _cosine(kern8, plain8), _cosine(kern8, kern16)
-    say("end-to-end-int8", int8_kernel_vs_int8_reference_cosine=cos_ref.tolist(), reference_limit=0.99,
+    say(phase, frames=t_frames, int8_kernel_vs_int8_reference_cosine=cos_ref.tolist(), reference_limit=0.99,
         int8_kernel_vs_bf16_kernel_cosine=cos_bf16.tolist(), bf16_limit=INT8_COS_FLOOR)
     if not (np.isfinite(kern8).all() and (cos_ref >= 0.99).all()):
         raise AssertionError(f"int8 kernel path vs int8 reference path: cosine {cos_ref}")
     if not (cos_bf16 >= INT8_COS_FLOOR).all():
         raise AssertionError(f"int8 kernel path vs bf16 kernel path: cosine {cos_bf16} < {INT8_COS_FLOOR}")
+
+
+def _pack_mha(sd: dict) -> dict:
+    """The port's per-matrix wq/wk/wv Linears -> torch's packed in_proj."""
+    import torch
+
+    for key in [k for k in sd if k.endswith(".wq.weight")]:
+        pre = key.removesuffix("wq.weight")
+        for f in ("weight", "bias"):
+            sd[f"{pre}in_proj_{f}"] = torch.cat([sd.pop(f"{pre}{w}.{f}") for w in ("wq", "wk", "wv")])
+            sd[f"{pre}out_proj.{f}"] = sd.pop(f"{pre}wo.{f}")
+    return sd
+
+
+# the port's state-dict names -> the reference's (model/LaviLa.py, the decoder's .pth.tar)
+_LAVILA_NAMES = ((r"^visual\.(blocks\.\d+)\.mlp_fc(\d)", r"visual.\1.mlp.fc\2"),
+                 (r"^text\.blocks\.", "transformer.resblocks."), (r"\.mlp_fc\.", ".mlp.c_fc."),
+                 (r"\.mlp_proj\.", ".mlp.c_proj."), (r"^text\.token_embedding$", "token_embedding.weight"),
+                 (r"^text\.", ""))
+_DECODER_NAMES = ((r"^pre_norm\.", "transformer.pre_norm."), (r"^decoder_norm\.", "transformer.decoder.norm."),
+                  (r"^layers\.", "transformer.decoder.layers."), (r"\.cross_attn\.", ".multihead_attn."),
+                  (r"^(query_embed|frame_index|query_index)$", r"\1.weight"),
+                  (r"^bbox_mlp\.", "bbox_embed.layers."), (r"^txt_proj\.", "txt_proj.1."),
+                  (r"^vid_proj\.", "vid_proj.0."), (r"^obj_proj\.1\.", "obj_proj.2."))
+
+
+def reference_state_dicts(backbone, decoder, vcfg) -> tuple[dict, dict]:
+    """The port's ``Lavila`` and ``ObjDecoder`` -> f32 CPU state dicts in the
+    reference's layout, the inverse of ``models/weights.py``: the flat
+    channel-last patch Linear back to the (D, C, P, P) conv, q/k/v packed."""
+    def rename(sd, names):
+        out = {}
+        for k, v in sd.items():
+            for pat, rep in names:
+                k = re.sub(pat, rep, k)
+            out[k] = v.detach().float().cpu()
+        return _pack_mha(out)
+
+    lsd = rename(backbone.state_dict(), _LAVILA_NAMES)
+    w = lsd.pop("visual.patch_embed.weight")
+    p = vcfg.patch_size
+    lsd["visual.patch_embed.proj.weight"] = w.reshape(w.shape[0], p, p, vcfg.in_chans).permute(0, 3, 1, 2).contiguous()
+    return lsd, rename(decoder.state_dict(), _DECODER_NAMES)
+
+
+def _serve_cli(argv, card):
+    """``cli.serve.main(argv)`` in a thread, through its ready/stop hooks:
+    text, 1-clip and 2-clip video and health requests with the launch
+    counts set to 0 just before and read just after. -> (the served
+    EvalModel, launches)."""
+    import torch
+
+    from helping_hand_for_egocentric_videos_torch.cli import serve
+
+    started, stop, box = threading.Event(), threading.Event(), {}
+
+    def ready(srv, engine):
+        box.update(base=f"http://127.0.0.1:{srv.server_address[1]}", engine=engine)
+        started.set()
+
+    def run():
+        try:
+            serve.main(argv, ready=ready, stop=stop)
+        except BaseException as e:  # surfaced to the caller below
+            box["error"] = e
+            started.set()
+
+    t0 = time.perf_counter()
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    try:
+        if not started.wait(timeout=600) or "error" in box:
+            raise RuntimeError(f"cli.serve did not come up: {box.get('error')!r}") from box.get("error")
+        startup_s = time.perf_counter() - t0
+        engine, base = box["engine"], box["base"]
+        model = engine.model
+        t_frames, res = model.lavila_cfg.visual.num_frames, model.input_res
+        rng = np.random.default_rng(SEED + 6)
+        clips = {n: _npy(rng.integers(0, 256, size=(n, t_frames, res, res, 3), dtype=np.uint8)) for n in (1, 2)}
+        text = json.dumps({"texts": ["#C C cuts the onion on the board", "wash hands"]}).encode()
+        torch.cuda.synchronize()
+        calls0 = engine.stats["video"].snapshot()["device_calls"]
+
+        # ---- the main path: counts set to 0 just before, read just after
+        reset_counts()
+        res_text = _request(base, "/embed_text", text)
+        res_video = [_request(base, "/embed_video", clips[1], "application/x-npy"),
+                     _request(base, "/embed_video?boxes=1", clips[2], "application/x-npy")]
+        res_health = _request(base, "/healthz")
+        torch.cuda.synchronize()
+        launches = read_counts()
+        video_calls = engine.stats["video"].snapshot()["device_calls"] - calls0
+        # ----
+    finally:
+        stop.set()
+        th.join(timeout=120)
+    if th.is_alive():
+        raise RuntimeError("cli.serve did not stop")
+
+    emb = np.asarray(res_text["out"]["embeddings"])
+    if res_text["code"] != 200 or emb.shape != (2, model.dec_cfg.embed_dim) or not np.isfinite(emb).all():
+        raise AssertionError(f"bad /embed_text answer: {res_text['code']} {emb.shape}")
+    for r, n in zip(res_video, (1, 2)):
+        _check_embed_video(r, n, model.dec_cfg.embed_dim, model.dec_cfg.num_queries)
+    health = res_health["out"]
+    if health["status"] != "ok" or health["backend"] != model.device.type or health["int8"] is not model.int8 \
+            or health["video_shape"] != [t_frames, res, res, 3]:
+        raise AssertionError(f"bad /healthz answer: {health}")
+    per_forward = launches_per_forward(model)
+    if video_calls < 1 or launches != {k: v * video_calls for k, v in per_forward.items()}:
+        raise AssertionError(f"{launches} launches for {video_calls} video forwards, want {per_forward} per forward")
+    say("serve-long-int8" if model.int8 else "serve-long", card=card, frames=t_frames,
+        startup_seconds=startup_s, video_forwards=video_calls, launches=launches,
+        launches_per_forward=per_forward,
+        latency=[{"path": r["path"].split("?")[0], "seconds": r["seconds"]}
+                 for r in (res_text, *res_video, res_health)])
+    return model, launches
+
+
+def phase_serve_long(card, device="cuda", backbone="timesformer_large", frames=LONG_T):
+    """Write reference-layout checkpoints of seeded random weights at 4
+    frames, then serve them with ``cli.serve`` at ``frames`` in bf16 and
+    in int8. -> (bf16 model, int8 model, launches of the two runs)."""
+    import torch
+
+    from helping_hand_for_egocentric_videos_torch.models import DecoderConfig, Lavila, ObjDecoder, lavila
+
+    # the CLI's projection width (its ExperimentConfig), 256
+    lcfg = getattr(lavila, f"{backbone}_config")(num_frames=CKPT_T, project_embed_dim=256)
+    dcfg = DecoderConfig(num_queries=13, feature_dim=lcfg.visual.width, text_width=lcfg.text.width,
+                         num_frames=CKPT_T, patches_per_frame=lcfg.visual.patches_per_frame, pred_traj=True)
+    gen = torch.Generator(device=device).manual_seed(SEED + 4)
+    model = Lavila(lcfg, generator=gen, device=device)
+    decoder = ObjDecoder(dcfg, generator=gen, device=device)
+    with torch.no_grad():  # as build_serving_model: a non-zero time attention
+        for blk in model.visual.blocks:
+            blk.timeattn.qkv.weight.normal_(0.0, 0.02, generator=gen)
+            blk.timeattn.proj.weight.normal_(0.0, 0.02, generator=gen)
+        model.visual.temporal_embed.normal_(0.0, 0.02, generator=gen)  # so the inflation shows
+    BUILD.mkdir(exist_ok=True)
+    served = {}
+    with tempfile.TemporaryDirectory(dir=BUILD, prefix="serve_long_") as tmp:
+        t0 = time.perf_counter()
+        lsd, dsd = reference_state_dicts(model, decoder, lcfg.visual)
+        bpath, dpath = f"{tmp}/lavila_{backbone}_{CKPT_T}f.pth", f"{tmp}/decoder_nq12_{CKPT_T}f.pth.tar"
+        torch.save({f"module.{k}": v for k, v in lsd.items()}, bpath)
+        torch.save({"state_dict": dsd, "epoch": 0}, dpath)
+        write_s = time.perf_counter() - t0
+        del lsd, dsd
+        argv = ["--backbone", backbone, "--backbone_ckpt", bpath, "--decoder_ckpt", dpath,
+                "--num_frames", str(frames), "--buckets", *map(str, LONG_BUCKETS), "--port", "0",
+                "--device", device]
+        for int8 in (False, True):
+            served[int8] = _serve_cli(argv + (["--int8"] if int8 else []), card)
+    # the converted weights are the written ones (the inflated temporal embeddings aside)
+    m16 = served[False][0]
+    mismatch = [k for src, dst in ((model, m16.backbone), (decoder, m16.decoder))
+                for k, v in src.state_dict().items()
+                if not k.endswith("temporal_embed") and not torch.equal(v, dst.state_dict()[k])]
+    if mismatch:
+        raise AssertionError(f"the converted checkpoint differs from the written weights: {mismatch[:5]}")
+    say("serve-long-checkpoints", checkpoint_frames=CKPT_T, frames=frames, write_seconds=write_s,
+        parameters=sum(p.numel() for p in model.parameters()) + sum(p.numel() for p in decoder.parameters()),
+        round_trip_equal=True)
+    del model, decoder
+    return served[False][0], served[True][0], {k: served[False][1][k] + served[True][1][k] for k in _counters()}
 
 
 def main():
@@ -617,6 +882,7 @@ def main():
     phase_build()
     report = phase_kernels("cuda", peaks)
     report.update(phase_int8_kernels("cuda", peaks))
+    report["headgrid"] = phase_headgrid("cuda", peaks)
     phase_int_mm("cuda", peaks)
     model = build_serving_model("cuda")
     launches = phase_serve(model, card, "cuda")
@@ -625,11 +891,17 @@ def main():
     launches8 = phase_serve(model8, card, "cuda")
     phase_end_to_end(model, "cuda")
     phase_end_to_end_int8(model8, model, "cuda")
+    del model, model8
+    torch.cuda.empty_cache()
+    long16, long8, launches_long = phase_serve_long(card)
+    phase_end_to_end(long16, "cuda", phase="end-to-end-long")
+    phase_end_to_end_int8(long8, long16, "cuda", phase="end-to-end-long-int8")
     counts = {
         "space": launches["divided_attention_space"], "time": launches["divided_attention_time"],
         "space_int8": launches8["divided_attention_space_int8"],
         "time_int8": launches8["divided_attention_time_int8"],
         "layer_norm_int8": launches8["layer_norm_int8"], "quick_gelu_int8": launches8["quick_gelu_int8"],
+        "headgrid": launches_long["time_attention_headgrid"],
     }
     for key, n in counts.items():
         if n < 1:

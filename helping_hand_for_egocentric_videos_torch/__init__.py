@@ -2,10 +2,12 @@
 
 A second package beside ``helping_hand_for_egocentric_videos_tpu`` (the
 JAX reference). Module names mirror the reference so each counterpart is
-easy to find. This slice covers the zero-shot serving path: uint8 clip ->
+easy to find. It covers the zero-shot serving path: uint8 clip ->
 preprocess -> frozen TimeSformer-L tower (divided space-time attention in
-a hand-written CUDA kernel, ``csrc/divided_attention.cu``) -> object
-decoder -> embeddings, served by ``serve.ServingEngine``.
+hand-written CUDA kernels, ``csrc/``) -> object decoder -> embeddings,
+served by ``serve.ServingEngine`` and ``cli.serve`` from the reference's
+checkpoints (``models/weights.py``), in bf16 or int8, up to 128-frame
+clips.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; the CUDA kernels are built with ``nvcc`` at first use

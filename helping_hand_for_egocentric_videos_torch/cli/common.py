@@ -1,0 +1,86 @@
+"""Shared CLI helpers.
+
+Counterpart of ``helping_hand_for_egocentric_videos_tpu/cli/common.py``:
+the eval CLIs' arguments and the model they build. The port's CLIs run on
+the CUDA device unless given ``--device cpu``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["add_eval_args", "build_eval_model", "print_env"]
+
+
+def print_env(device: str):
+    """One line: the torch version and the device the CLI runs on."""
+    name = torch.cuda.get_device_name(torch.device(device)) if torch.device(device).type == "cuda" else "cpu"
+    print(f"torch {torch.__version__} | device={device} ({name})", flush=True)
+
+
+def build_eval_model(args):
+    """Construct (EvalModel, lavila_cfg, dec_cfg) from eval-CLI args: the
+    checkpoints converted, both temporal embeddings (the backbone's and
+    the decoder's) inflated to ``--num_frames`` (run/test_egtea.py:46-96,
+    test_epic.py:128-132,168-173), the model on ``--device``."""
+    from ..core.config import ExperimentConfig
+    from ..data import ClipTokenizer
+    from ..models.weights import inflate_temporal_embed
+    from ..train.evaluate import EvalModel
+    from ..train.pretrain import build_models
+
+    cfg = ExperimentConfig()
+    cfg.data.num_frames = args.num_frames
+    cfg.model.backbone = args.backbone
+    cfg.model.backbone_ckpt = args.backbone_ckpt
+    cfg.model.decoder_ckpt = args.decoder_ckpt
+    cfg.model.num_queries = args.num_queries
+    cfg.model.pred_traj = getattr(args, "pred_traj", False)
+    lavila_cfg, backbone, dec_cfg, decoder = build_models(cfg)
+
+    with torch.no_grad():
+        for owner in (backbone.visual, decoder):
+            owner.temporal_embed = torch.nn.Parameter(
+                inflate_temporal_embed(owner.temporal_embed.detach(), args.num_frames)
+            )
+
+    model = EvalModel(
+        backbone,
+        lavila_cfg,
+        decoder,
+        dec_cfg,
+        ClipTokenizer(),
+        preprocess=getattr(args, "preprocess", "resize"),
+        device=args.device,
+        int8=getattr(args, "int8", False),
+        int8_fallback=getattr(args, "int8_fallback", None),
+    )
+    return model, lavila_cfg, dec_cfg
+
+
+def add_eval_args(p):
+    """The model options of the eval CLIs (the JAX package's data and
+    results-file options come with the eval harnesses that read them)."""
+    p.add_argument("--backbone", default="timesformer_large")
+    p.add_argument("--backbone_ckpt", default="")
+    p.add_argument("--decoder_ckpt", default="")
+    p.add_argument("--num_frames", type=int, default=16)
+    p.add_argument("--num_queries", type=int, default=12)
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the model (default: the CUDA device; 'cpu' runs the "
+                   "kernels' plain versions)")
+    p.add_argument(
+        "--int8",
+        action="store_true",
+        help="int8-quantize the frozen visual tower (models/quant.py); compare its embeddings "
+        "against a float run before trusting new weights",
+    )
+    p.add_argument(
+        "--int8_fallback",
+        type=float,
+        default=None,
+        metavar="THRESHOLD",
+        help="with --int8: per-block float fallback for blocks whose LayerNorm-gamma spread "
+        "exceeds the threshold (models/quant.py)",
+    )
+    return p

@@ -33,7 +33,11 @@ quantizes the f32 LayerNorm, GELU and attention outputs; the unfused
 route (``int8_linear``, the reference backend, every fallback tower)
 quantizes the activation after its rounding to the stream's type. The two
 round differently, so each backend takes the route its JAX counterpart
-takes. The CLS row always goes through ``linear``.
+takes, per attention mode: the JAX package fuses a mode only where its
+TPU kernel takes the shape (``_kernel_friendly``). At T = 128 its time
+attention leaves the kernel, so time attention there takes the unfused
+route (and K6), while space attention and the MLP stay fused. The CLS row
+always goes through ``linear``.
 """
 
 from __future__ import annotations
@@ -44,7 +48,7 @@ import torch
 from torch import nn
 
 from ..ops.act_quant import layer_norm_int8, quick_gelu_int8
-from ..ops.divided_attention import divided_patch_attention, merge_cls_partials
+from ..ops.divided_attention import divided_patch_attention, merge_cls_partials, needs_head_grid
 from .layers import layer_norm, layer_norm_init, linear, linear_init, quick_gelu
 from .quant import QuantLinear, int8_linear_prequant
 
@@ -172,14 +176,30 @@ def _pure_int8(lin) -> bool:
     return isinstance(lin, QuantLinear) and lin.q_on is None
 
 
-def _var_attention_split(p: VarAttention, x_cls, x_p, t: int, n: int, heads: int, mode: str, backend: str):
+def _kernel_friendly(n: int, d: int, heads: int, t: int, mode: str = "space") -> bool:
+    """The JAX package's test for shapes its TPU attention kernel takes
+    (its ``spacetime_vit._kernel_friendly``), copied with its numbers: the
+    port reads it to take the JAX package's int8 route for each mode
+    (module docstring), not to pick a kernel. Time attention fails it where
+    the TPU's single-tile ask overruns its VMEM budget (T = 128 at
+    TimeSformer-L widths); both modes need 64-multiple head dims, n a
+    multiple of 8 and at least 32, at most 16 heads and t <= 128."""
+    if mode == "time" and needs_head_grid(t, n, heads):
+        return False
+    return (d // heads) % 64 == 0 and n % 8 == 0 and n >= 32 and heads <= 16 and t <= 128
+
+
+def _var_attention_split(p: VarAttention, x_cls, x_p, t: int, n: int, heads: int, mode: str, backend: str,
+                         kernel_route: bool = True):
     """Divided attention on the split (cls, patches) representation.
 
     ``x_p`` is the (B, T*N, D) patch stream, or on the fused int8 route its
     (codes, scales) from ``layer_norm_int8``. Returns (cls_out (B, 1, D),
     patch_out (B, T*N, D)), after the output projection. The patch qkv
     matmul's (B, T*N, 3D) output reshapes for free into the kernel's
-    (B, T, N, 3D) input.
+    (B, T, N, 3D) input. ``kernel_route`` False is the JAX package's XLA
+    route for shapes its TPU kernel does not take: ``linear`` for qkv and
+    proj, the attention output never quantized by the kernel.
     """
     if backend == "reference":
         out = _var_attention(p, torch.cat([x_cls, x_p], dim=1), t, n, heads, mode)
@@ -196,7 +216,7 @@ def _var_attention_split(p: VarAttention, x_cls, x_p, t: int, n: int, heads: int
     qkv_p = qkv_p.reshape(b, t, n, 3 * d)
     cls_q, cls_k, cls_v = (z.contiguous() for z in linear(p.qkv, x_cls)[:, 0].split(d, dim=-1))
     # a pure int8 proj takes the attention output as codes (K3)
-    quant_out = _pure_int8(p.proj)
+    quant_out = kernel_route and _pure_int8(p.proj)
     out_patch, (m, s, co) = divided_patch_attention(
         qkv_p, cls_k, cls_v, cls_q, mode=mode, heads=heads, quant_out=quant_out
     )
@@ -216,22 +236,26 @@ def _block(p: SpaceTimeBlock, x, cfg: SpaceTimeConfig, t: int, n: int):
     eps = cfg.ln_eps
     be = cfg.attention_backend
     x_cls, x_p = x
-    # the fused int8 route of the patch stream (module docstring)
-    q_attn = be == "kernel" and _pure_int8(p.timeattn.qkv) and _pure_int8(p.attn.qkv)
-    q_mlp = be == "kernel" and _pure_int8(p.mlp_fc1) and _pure_int8(p.mlp_fc2)
+    d = x_p.shape[-1]
+    # the JAX package's route per mode (module docstring; its _block)
+    ok = {m: be == "kernel" and _kernel_friendly(n, d, cfg.heads, t, m) for m in ("time", "space")}
+    lanes_ok = d % 128 == 0
+    int8_qkv = _pure_int8(p.timeattn.qkv) and _pure_int8(p.attn.qkv)
+    q_attn = {m: ok[m] and lanes_ok and int8_qkv for m in ("time", "space")}
+    q_mlp = ok["space"] and lanes_ok and _pure_int8(p.mlp_fc1) and _pure_int8(p.mlp_fc2)
 
-    def norm_patch(norm, z):
-        return layer_norm_int8(norm, z, eps) if q_attn else layer_norm(norm, z, eps)
+    def norm_patch(norm, z, mode):
+        return layer_norm_int8(norm, z, eps) if q_attn[mode] else layer_norm(norm, z, eps)
 
     tc, tp = _var_attention_split(
-        p.timeattn, layer_norm(p.norm3, x_cls, eps), norm_patch(p.norm3, x_p),
-        t, n, cfg.heads, "time", be,
+        p.timeattn, layer_norm(p.norm3, x_cls, eps), norm_patch(p.norm3, x_p, "time"),
+        t, n, cfg.heads, "time", be, ok["time"],
     )
     tr_cls, tr_p = x_cls + tc, x_p + tp
 
     sc, sp = _var_attention_split(
-        p.attn, layer_norm(p.norm1, tr_cls, eps), norm_patch(p.norm1, tr_p),
-        t, n, cfg.heads, "space", be,
+        p.attn, layer_norm(p.norm1, tr_cls, eps), norm_patch(p.norm1, tr_p, "space"),
+        t, n, cfg.heads, "space", be, ok["space"],
     )
     # 'frozen-in-time' residual: from x, not from the time residual
     sr_cls, sr_p = x_cls + sc, x_p + sp

@@ -3,6 +3,8 @@ from .divided_attention import (
     divided_patch_attention,
     divided_patch_attention_ref,
     merge_cls_partials,
+    needs_head_grid,
+    time_attention_headgrid_ref,
 )
 from .preprocess import resize_normalize, shortside_centercrop_normalize, shortside_dims
 
@@ -14,6 +16,8 @@ __all__ = [
     "divided_patch_attention",
     "divided_patch_attention_ref",
     "merge_cls_partials",
+    "needs_head_grid",
+    "time_attention_headgrid_ref",
     "resize_normalize",
     "shortside_centercrop_normalize",
     "shortside_dims",

@@ -20,7 +20,20 @@ Three things live here:
   the integer attributes ``launches_space`` and ``launches_time`` (K1,
   K2), and, with ``quant_out=True`` (K3: the output quantized per token to
   int8 for the int8 projection), ``launches_space_quant`` and
-  ``launches_time_quant``.
+  ``launches_time_quant``. Time attention on long clips (``head_grid``,
+  K6) goes to ``csrc/divided_attention_long.cu`` and is counted in
+  ``launches_time_headgrid``; its plain version is
+  ``time_attention_headgrid_ref``.
+
+The JAX package picks its time-attention kernel, and whether the int8
+route is fused, from the TPU's scoped-VMEM budget (``_temporal_block``,
+``_scoped_vmem_ask``, ``_VMEM_LIMIT``, ``needs_head_grid``, copied here
+with their numbers). The port keeps those thresholds as they are: they
+choose the JAX package's *route*, and with it where the int8 path rounds,
+so each backend rounds where its JAX counterpart does. They say nothing
+about the card's memory: on an H100, K6 is the faster time kernel at every
+clip length measured (PERF.md, section 5), and ``needs_head_grid`` is
+kept only to mirror the JAX package's route.
 """
 
 from __future__ import annotations
@@ -36,9 +49,41 @@ __all__ = [
     "divided_patch_attention",
     "divided_patch_attention_ref",
     "merge_cls_partials",
+    "needs_head_grid",
+    "time_attention_headgrid_ref",
 ]
 
 _MODES = ("space", "time")
+MAX_HEADGRID_T = 256  # K6 stages a tube's keys and values in shared memory
+
+# the TPU's scoped-VMEM budget, as the JAX package states it (module docstring)
+_VMEM_LIMIT = 100 * 1024 * 1024
+
+
+def _scoped_vmem_ask(r: int, heads: int) -> int:
+    """The JAX package's estimate of one TPU rows-kernel program's
+    scoped-VMEM ask in bytes: an (R+1, R) f32 logits and exp pair per head."""
+    return heads * 2 * (r + 1) * r * 4
+
+
+def _temporal_block(t: int, n: int) -> int:
+    """Tubes per TPU time tile (R = t * nb rows, aiming at 256), as the JAX
+    package chooses them: a multiple of 8 dividing n, at least 8."""
+    nb = min(max(256 // t, 8), n)
+    nb -= nb % 8
+    while nb > 8 and n % nb:
+        nb -= 8
+    if nb < 8 or n % nb:
+        nb = 8 if n % 8 == 0 else n
+    return max(nb, 1)
+
+
+def needs_head_grid(t: int, n: int, heads: int) -> bool:
+    """True where the JAX package's single-tile time kernel would overrun
+    the TPU's VMEM budget and time attention takes the head-grid kernel
+    (K6): T = 128 at TimeSformer-L widths (N = 256, H = 16)."""
+    r = t * _temporal_block(t, n)
+    return _scoped_vmem_ask(r, heads) + 16 * 1024 * 1024 > _VMEM_LIMIT
 
 
 def _groups(x, mode: str):
@@ -89,6 +134,17 @@ def divided_patch_attention_ref(qkv, cls_k, cls_v, cls_q, *, mode: str, heads: i
     e = torch.exp(lq - pm)
     co = (e.unsqueeze(-2) @ v).squeeze(-2)  # (B, G, H, dh)
     return out, (pm, e.sum(-1, keepdim=True), co)
+
+
+def time_attention_headgrid_ref(qkv, cls_k, cls_v, cls_q, *, heads: int):
+    """Plain version of K6, the time attention with the head in the grid.
+
+    The same function as ``divided_patch_attention_ref(mode="time")``, with
+    K6's partial grouping: one group a tube, (B, N, H, 1|1|dh) f32. (The
+    TPU kernel groups ``_temporal_block(T, N)`` tubes a tile; the merged
+    CLS output is the same.)
+    """
+    return divided_patch_attention_ref(qkv, cls_k, cls_v, cls_q, mode="time", heads=heads)
 
 
 def merge_cls_partials(m, s, co, cls_q, cls_k, cls_v, heads: int):
@@ -173,23 +229,67 @@ def _launch_kernel(qkv, cls_k, cls_v, cls_q, mode: str, heads: int, quant_out: b
     return out, (pm, ps, co)
 
 
+def _launch_headgrid(qkv, cls_k, cls_v, cls_q, heads: int):
+    dh = _check_cuda_args(qkv, cls_k, cls_v, cls_q, heads)
+    b, t, n, d3 = qkv.shape
+    if t > MAX_HEADGRID_T:
+        raise ValueError(f"the head-grid kernel takes T <= {MAX_HEADGRID_T}, got {t}")
+    dev = qkv.device
+    out = torch.empty((b, t, n, d3 // 3), dtype=qkv.dtype, device=dev)
+    pm = torch.empty((b, n, heads, 1), dtype=torch.float32, device=dev)
+    ps = torch.empty((b, n, heads, 1), dtype=torch.float32, device=dev)
+    co = torch.empty((b, n, heads, dh), dtype=torch.float32, device=dev)
+    fn = library("divided_attention_long").hh_time_attention_headgrid
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        rc = fn(
+            qkv.data_ptr(), cls_q.data_ptr(), cls_k.data_ptr(), cls_v.data_ptr(),
+            out.data_ptr(), pm.data_ptr(), ps.data_ptr(), co.data_ptr(),
+            b, t, n, heads, dh, int(qkv.dtype == torch.bfloat16),
+            dh**-0.5, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"time_attention_headgrid kernel launch failed: cudaError {rc}")
+    return out, (pm, ps, co)
+
+
 def divided_patch_attention(qkv, cls_k, cls_v, cls_q, *, mode: str, heads: int,
-                            quant_out: bool = False):
+                            quant_out: bool = False, head_grid: bool | None = None):
     """Patch-token divided attention on packed qkv, with the CLS partials.
 
     Same contract as ``divided_patch_attention_ref``. A CUDA tensor runs
     the CUDA kernel (and raises what it does not take); a CPU tensor runs
     the plain version.
+
+    ``head_grid`` (time mode only) selects K6, as in the JAX package:
+    ``None`` takes it where ``needs_head_grid(T, N, heads)``, ``True``
+    forces it. K6 returns its partials per tube and has no ``quant_out``.
     """
     if mode not in _MODES:
         raise ValueError(f"mode must be one of {_MODES}, got {mode!r}")
+    b, t, n, _ = qkv.shape
+    if mode == "space":
+        if head_grid:
+            raise ValueError("head_grid is a time-attention kernel; mode is 'space'")
+        head_grid = False
+    elif head_grid is None:
+        head_grid = needs_head_grid(t, n, heads)
+    if head_grid and quant_out:
+        raise ValueError("the head-grid time kernel (K6) has no quant_out")
     if qkv.device.type == "cpu":
+        if head_grid:
+            return time_attention_headgrid_ref(qkv, cls_k, cls_v, cls_q, heads=heads)
         return divided_patch_attention_ref(qkv, cls_k, cls_v, cls_q, mode=mode, heads=heads,
                                            quant_out=quant_out)
     if qkv.device.type != "cuda":
         raise ValueError(f"no divided-attention kernel for device {qkv.device}")
-    res = _launch_kernel(qkv, cls_k, cls_v, cls_q, mode, heads, quant_out)
-    attr = f"launches_{mode}" + ("_quant" if quant_out else "")
+    if head_grid:
+        res = _launch_headgrid(qkv, cls_k, cls_v, cls_q, heads)
+        attr = "launches_time_headgrid"
+    else:
+        res = _launch_kernel(qkv, cls_k, cls_v, cls_q, mode, heads, quant_out)
+        attr = f"launches_{mode}" + ("_quant" if quant_out else "")
     setattr(divided_patch_attention, attr, getattr(divided_patch_attention, attr) + 1)
     return res
 
@@ -198,3 +298,4 @@ divided_patch_attention.launches_space = 0
 divided_patch_attention.launches_time = 0
 divided_patch_attention.launches_space_quant = 0
 divided_patch_attention.launches_time_quant = 0
+divided_patch_attention.launches_time_headgrid = 0

@@ -4,10 +4,14 @@ The port's plain version plus ``merge_cls_partials`` is held, in f32,
 against the JAX Pallas kernel run in interpret mode plus its merge, and
 against the JAX eager oracle ``_var_attention``; with ``quant_out`` (K3)
 its codes and scales against the JAX kernel's ``quant_out`` with the
-JAX package's tolerances for quantized outputs. The CUDA kernel against
-the plain version runs only where there is a card (marker ``cuda``); the
-machine with the card has no JAX, so JAX comes in through a fixture and
-this file runs there with
+JAX package's tolerances for quantized outputs. K6 (the head-grid time
+kernel of long clips) has its plain version held against the JAX
+``_time_attention_headgrid`` in interpret mode at T = 128, and the TPU
+route thresholds the port copies (``_temporal_block``, ``_scoped_vmem_ask``,
+``needs_head_grid``, ``_kernel_friendly``) equal the JAX package's. The
+CUDA kernels against the plain versions run only where there is a card
+(marker ``cuda``); the machine with the card has no JAX, so JAX comes in
+through a fixture and this file runs there with
 ``python -m pytest --noconftest -m cuda tests/test_torch_divided_attention.py``.
 """
 
@@ -17,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from helping_hand_for_egocentric_videos_torch.models import spacetime_vit as tvit
 from helping_hand_for_egocentric_videos_torch.ops import divided_attention as da
 
 HEADS, DH, N, B = 2, 64, 64, 2
@@ -46,7 +51,10 @@ def jx():
     from helping_hand_for_egocentric_videos_tpu.models.spacetime_vit import _var_attention
     from helping_hand_for_egocentric_videos_tpu.ops import divided_attention
 
-    return types.SimpleNamespace(jnp=jnp, da=divided_attention, var_attention=_var_attention)
+    from helping_hand_for_egocentric_videos_tpu.models.spacetime_vit import _kernel_friendly
+
+    return types.SimpleNamespace(jnp=jnp, da=divided_attention, var_attention=_var_attention,
+                                 kernel_friendly=_kernel_friendly)
 
 
 def _port(qkv_p, cls_q, cls_k, cls_v, mode):
@@ -179,6 +187,119 @@ def test_wrapper_rejects_unknown_mode_and_device():
         da.divided_patch_attention(zm, cm, cm, cm, mode="space", heads=HEADS)
 
 
+# K6's CPU cases: T = 128 at N <= 64 keeps Tier-1 fast
+HG_HEADS, HG_DH, HG_N = 2, 32, 16
+HG_D = HG_HEADS * HG_DH
+
+
+def _hg_inputs(b, t, seed):
+    rng = np.random.default_rng(seed)
+    qkv = rng.normal(size=(b, t, HG_N, 3 * HG_D)).astype(np.float32)
+    cq, ck, cv = (rng.normal(size=(b, HG_D)).astype(np.float32) for _ in range(3))
+    return qkv, cq, ck, cv
+
+
+def _group_partials(m, s, co, nb):
+    """Per-tube partials (B, N, H, .) merged into groups of ``nb`` tubes:
+    the TPU kernel's grouping."""
+    b, n, h, _ = m.shape
+    m, s, co = (z.reshape(b, n // nb, nb, h, -1) for z in (m, s, co))
+    mg = m.amax(2, keepdim=True)
+    w = torch.exp(m - mg)
+    return mg[:, :, 0], (s * w).sum(2), (co * w).sum(2)
+
+
+@pytest.mark.parametrize("b, t", [(1, 128), (2, 16)])
+def test_headgrid_ref_matches_jax_headgrid_interpret(jx, b, t):
+    """The plain K6 against the JAX head-grid kernel in interpret mode: the
+    output and the merged CLS output at atol 1e-5; the partials, merged
+    into the TPU's groups of ``_temporal_block(T, N)`` tubes, at rtol and
+    atol 1e-5 (s sums up to T * nb terms)."""
+    jnp, jax_da = jx.jnp, jx.da
+    qkv, cq, ck, cv = _hg_inputs(b, t, seed=3)
+    out, (m, s, co) = jax_da._time_attention_headgrid(
+        jnp.asarray(qkv), jnp.concatenate([jnp.asarray(z) for z in (cq, ck, cv)], -1),
+        heads=HG_HEADS, interpret=True,
+    )
+    want_cls = jax_da.merge_cls_partials(m, s, co, *(jnp.asarray(z) for z in (cq, ck, cv)), HG_HEADS)
+    tq, tk, tv = (torch.from_numpy(z) for z in (cq, ck, cv))
+    got, parts = da.time_attention_headgrid_ref(torch.from_numpy(qkv), tk, tv, tq, heads=HG_HEADS)
+    assert parts[0].shape == (b, HG_N, HG_HEADS, 1) and parts[2].shape == (b, HG_N, HG_HEADS, HG_DH)
+    got_cls = da.merge_cls_partials(*parts, tq, tk, tv, HG_HEADS)
+    np.testing.assert_allclose(got.numpy(), np.asarray(out), atol=ATOL)
+    np.testing.assert_allclose(got_cls.numpy(), np.asarray(want_cls), atol=ATOL)
+    nb = jax_da._temporal_block(t, HG_N)
+    for a, w in zip(_group_partials(*parts, nb), (m, s, co)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), rtol=1e-5, atol=ATOL)
+
+
+@pytest.mark.parametrize("b, t", [(1, 128), (2, 16)])
+def test_headgrid_ref_matches_jax_var_attention(jx, b, t):
+    """With an identity output projection, the JAX eager oracle gives the
+    raw attention of every patch row and of the CLS row."""
+    jnp = jx.jnp
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(b, 1 + t * HG_N, HG_D)).astype(np.float32)
+    w = (rng.normal(size=(HG_D, 3 * HG_D)) * HG_D**-0.5).astype(np.float32)
+    bias = (rng.normal(size=(3 * HG_D,)) * 0.1).astype(np.float32)
+    p = {
+        "qkv": {"w": jnp.asarray(w), "b": jnp.asarray(bias)},
+        "proj": {"w": jnp.eye(HG_D, dtype=jnp.float32), "b": jnp.zeros((HG_D,), jnp.float32)},
+    }
+    want = np.asarray(jx.var_attention(p, jnp.asarray(x), t, HG_N, HG_HEADS, "time"))
+    qkv = (x @ w + bias).astype(np.float32)
+    cq, ck, cv = (torch.from_numpy(np.ascontiguousarray(z)) for z in np.split(qkv[:, 0], 3, axis=-1))
+    got, parts = da.time_attention_headgrid_ref(
+        torch.from_numpy(qkv[:, 1:].reshape(b, t, HG_N, 3 * HG_D)), ck, cv, cq, heads=HG_HEADS
+    )
+    np.testing.assert_allclose(got.numpy().reshape(b, t * HG_N, HG_D), want[:, 1:], atol=ATOL)
+    got_cls = da.merge_cls_partials(*parts, cq, ck, cv, HG_HEADS)
+    np.testing.assert_allclose(got_cls.numpy(), want[:, 0], atol=ATOL)
+
+
+GRID = [(t, n, h) for t in (4, 16, 32, 64, 128, 256) for n in (16, 64, 256) for h in (2, 12, 16)]
+
+
+def test_tpu_route_thresholds_equal_jax(jx):
+    """The thresholds the port copies decide the JAX package's route; over
+    the whole grid of (t, n, heads) they must give what the JAX ones give."""
+    jax_da = jx.da
+    for t, n, heads in GRID:
+        r = t * jax_da._temporal_block(t, n)
+        assert da._temporal_block(t, n) == jax_da._temporal_block(t, n), (t, n)
+        assert da._scoped_vmem_ask(r, heads) == jax_da._scoped_vmem_ask(r, heads), (r, heads)
+        assert da.needs_head_grid(t, n, heads) == jax_da.needs_head_grid(t, n, heads), (t, n, heads)
+        for dh in (32, 64):
+            for mode in ("space", "time"):
+                args = (n, heads * dh, heads, t, mode)
+                assert tvit._kernel_friendly(*args) == jx.kernel_friendly(*args), args
+    # TimeSformer-L widths: the head grid at T = 128 and only there
+    assert [da.needs_head_grid(t, 256, 16) for t in (16, 32, 64, 128)] == [False] * 3 + [True]
+
+
+def test_wrapper_takes_the_head_grid_where_jax_does():
+    """On the CPU the wrapper runs K6's plain version where the JAX package
+    takes K6 (``needs_head_grid``) or where asked, with K6's per-tube
+    partials; space mode and ``quant_out`` refuse it; nothing is counted."""
+    qkv, cq, ck, cv = (torch.from_numpy(z) for z in _hg_inputs(1, 128, seed=5))
+    counts = ("launches_time", "launches_time_headgrid")
+    before = [getattr(da.divided_patch_attention, c) for c in counts]
+    assert da.needs_head_grid(128, HG_N, 16) and not da.needs_head_grid(16, HG_N, 16)
+    for head_grid in (None, True):
+        got, parts = da.divided_patch_attention(qkv, ck, cv, cq, mode="time", heads=HG_HEADS,
+                                                head_grid=head_grid)
+        want, want_parts = da.time_attention_headgrid_ref(qkv, ck, cv, cq, heads=HG_HEADS)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        for a, b in zip(parts, want_parts):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="space"):
+        da.divided_patch_attention(qkv, ck, cv, cq, mode="space", heads=HG_HEADS, head_grid=True)
+    with pytest.raises(ValueError, match="quant_out"):
+        da.divided_patch_attention(qkv, ck, cv, cq, mode="time", heads=HG_HEADS, head_grid=True,
+                                   quant_out=True)
+    assert [getattr(da.divided_patch_attention, c) for c in counts] == before
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -237,3 +358,32 @@ def test_cuda_quant_out_kernel_matches_plain(cuda_device, mode, shape, dtype):
                         (want[0].cpu().numpy(), want[1].cpu().numpy()), max_changed=1e-3)
     for a, b_ in zip(parts, parts0):
         torch.testing.assert_close(a, b_, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "shape",  # (B, T, N, H, dh): T = 128 at full and small width, forced at T = 16, ragged T
+    [(1, 128, 256, 16, 64), (2, 128, 16, 2, 32), (2, 16, 256, 16, 64), (1, 37, 8, 4, 64), (1, 256, 4, 2, 64)],
+)
+def test_cuda_headgrid_kernel_matches_plain(cuda_device, shape, dtype):
+    """K6 on the card against its plain version: the patch output (f32:
+    only the order of the sums differs; bf16: the probabilities enter P V
+    in bf16 and the output is rounded) and the merged CLS output."""
+    b, t, n, heads, dh = shape
+    d = heads * dh
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    qkv = torch.randn(b, t, n, 3 * d, generator=g, device=cuda_device).to(dt)
+    ck, cv, cq = (torch.randn(b, d, generator=g, device=cuda_device).to(dt) for _ in range(3))
+    before = da.divided_patch_attention.launches_time_headgrid
+    out, parts = da.divided_patch_attention(qkv, ck, cv, cq, mode="time", heads=heads, head_grid=True)
+    assert da.divided_patch_attention.launches_time_headgrid == before + 1
+    want, want_parts = da.time_attention_headgrid_ref(qkv, ck, cv, cq, heads=heads)
+    cls = da.merge_cls_partials(*parts, cq, ck, cv, heads)
+    want_cls = da.merge_cls_partials(*want_parts, cq, ck, cv, heads)
+    torch.cuda.synchronize()
+    assert out.dtype == dt and parts[0].shape == (b, n, heads, 1)
+    atol = 1e-4 if dt == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=atol)
+    torch.testing.assert_close(cls, want_cls, rtol=0, atol=1e-4)

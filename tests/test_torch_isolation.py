@@ -1,8 +1,9 @@
 """The PyTorch port stands alone and fails loudly without a card.
 
 - Every module of the port imports with JAX made unimportable, and loads
-  nothing of the JAX package; no source of the port, nor chip_smoke.py,
-  names either in an import statement (lazy imports included).
+  nothing of the JAX package; no source of the port, nor chip_smoke.py
+  or the port's tools (``tools/torch_*.py``), names either in an import
+  statement (lazy imports included).
 - The kernel wrappers, and the int8 model code that calls them, have no
   ``try`` to fall back from a kernel.
 - Without CUDA, the default entry points raise and chip_smoke.py exits
@@ -37,7 +38,8 @@ def _port_sources():
 
 
 @pytest.mark.parametrize(
-    "path", [*_port_sources(), ROOT / "chip_smoke.py"], ids=lambda p: str(p.relative_to(ROOT))
+    "path", [*_port_sources(), ROOT / "chip_smoke.py", *sorted((ROOT / "tools").glob("torch_*.py"))],
+    ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_no_source_imports_jax_or_the_jax_package(path):
     bad = [m for m in _imported_names(path) if m.split(".")[0] in FORBIDDEN]

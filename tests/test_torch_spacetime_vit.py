@@ -190,3 +190,82 @@ def test_unknown_attention_backend_raises():
     vit = SpaceTimeViT(cfg)
     with pytest.raises(ValueError, match="attention_backend"):
         spacetime_forward(vit, cfg, torch.zeros(1, 1, 28, 28, 3), dtype=torch.float32)
+
+
+# ---- the int8 route per attention mode at T = 128 (TimeSformer-L heads)
+RT, RN, RH, RD = 128, 64, 16, 1024
+
+
+@pytest.fixture(scope="module")
+def route_tower():
+    """One pure int8 block at TimeSformer-L heads and width (16 x 64), T =
+    128, 64 patches; time attention given N(0, 0.05) weights."""
+    cfg = JaxConfig(img_size=112, patch_size=14, width=RD, depth=1, heads=RH, num_frames=RT)
+    params = jax.tree.map(np.array, init_spacetime_params(jax.random.PRNGKey(1), cfg))
+    rng = np.random.default_rng(6)
+    ta = params["blocks"]["timeattn"]
+    for name in ("qkv", "proj"):
+        for k in ("w", "b"):
+            ta[name][k] = (rng.normal(size=ta[name][k].shape) * 0.05).astype(np.float32)
+    q = jax.tree.map(np.asarray, quantize_lavila_params({"visual": params}, None)["visual"])
+    pcfg = SpaceTimeConfig(img_size=112, patch_size=14, width=RD, depth=1, heads=RH, num_frames=RT)
+    x = rng.normal(size=(1, 1 + RT * RN, RD)).astype(np.float32)
+    return q, pcfg, load_jax_params(SpaceTimeViT(pcfg), q), x
+
+
+def test_int8_route_at_t128_unfused_time_fused_space(monkeypatch, route_tower):
+    """The JAX ``_block`` fuses a mode only where its TPU kernel takes the
+    shape (``_kernel_friendly``): at T = 128 its time attention goes to
+    XLA with ``int8_linear`` for qkv and proj, while space attention and
+    the MLP stay fused. The port's kernel backend must do the same: K4
+    only for norm1 and norm2, K3 (``quant_out``) only in space mode, K5
+    once, and ``int8_linear`` for the time qkv and proj (patch and CLS
+    rows) and the CLS row's space qkv, proj and MLP."""
+    _, cfg, vit, x = route_tower
+    from helping_hand_for_egocentric_videos_torch.models import layers
+
+    calls = {"ln": 0, "gelu": 0, "int8_linear": 0, "attention": []}
+
+    def spy(name, fn):
+        def wrapped(*a, **kw):
+            if name == "attention":
+                calls[name].append((kw["mode"], kw.get("quant_out", False)))
+            else:
+                calls[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    monkeypatch.setattr(tvit, "layer_norm_int8", spy("ln", tvit.layer_norm_int8))
+    monkeypatch.setattr(tvit, "quick_gelu_int8", spy("gelu", tvit.quick_gelu_int8))
+    monkeypatch.setattr(tvit, "divided_patch_attention", spy("attention", tvit.divided_patch_attention))
+    monkeypatch.setattr(layers, "int8_linear", spy("int8_linear", layers.int8_linear))
+    assert not tvit._kernel_friendly(RN, RD, RH, RT, "time") and tvit._kernel_friendly(RN, RD, RH, RT, "space")
+    xc, xp = torch.from_numpy(x[:, :1]), torch.from_numpy(x[:, 1:])
+    with torch.inference_mode():
+        oc, op = tvit._block(vit.blocks[0], (xc, xp), cfg, RT, RN)
+    assert op.shape == (1, RT * RN, RD) and torch.isfinite(op).all() and torch.isfinite(oc).all()
+    assert calls == {"ln": 2, "gelu": 1, "int8_linear": 8,
+                     "attention": [("time", False), ("space", True)]}
+
+
+def test_int8_time_attention_at_t128_matches_jax_var_attention(route_tower):
+    """The port's time attention on that route against the JAX
+    ``_var_attention`` (the XLA route the JAX ``_block`` takes there) on
+    the same quantized weights, in f32, to ``INT8_RTOL`` x max|out|.
+    Measured on the CPU: 0.12% of max|out| at most, 2e-6 on average. The
+    old fused route (K4 codes -> int8 qkv -> K3 -> prequantized proj) was
+    off by the same amount here: in f32 both routes quantize the same f32
+    values; they part in bf16, where the unfused route quantizes the
+    bf16-rounded activation. So the route itself is shown by the spies of
+    the test above."""
+    q, _, vit, x = route_tower
+    from helping_hand_for_egocentric_videos_tpu.models.spacetime_vit import _var_attention
+
+    pq = jax.tree.map(lambda a: a[0], q["blocks"]["timeattn"])
+    want = np.asarray(_var_attention(pq, jnp.asarray(x), RT, RN, RH, "time"))
+    xc, xp = torch.from_numpy(x[:, :1]), torch.from_numpy(x[:, 1:])
+    with torch.inference_mode():
+        oc, op = tvit._var_attention_split(vit.blocks[0].timeattn, xc, xp, RT, RN, RH, "time", "kernel",
+                                           kernel_route=False)
+    got = torch.cat([oc, op], dim=1).numpy()
+    np.testing.assert_allclose(got, want, atol=INT8_RTOL * float(np.abs(want).max()))
