@@ -12,7 +12,8 @@ failed check raises and the script exits non-zero:
 1. device: the CUDA device, or exit non-zero; the ``nvidia-smi`` name and
    power limit; TF32 off for matmuls and convolutions.
 2. build: every ``csrc/*.cu`` with nvcc (one process per source, all
-   started together), with the build seconds and ptxas's register report.
+   started together), with the build seconds and, a line a compiled
+   kernel, ptxas's registers, spills and static shared memory.
 3. kernel vs plain: the divided-attention kernel in both modes at
    (B=2, T=4) and the serving shape (B=8, T=16), N=256, H=16, dh=64, in
    f32 and bf16, against the plain PyTorch version on the same inputs
@@ -23,7 +24,10 @@ failed check raises and the script exits non-zero:
    behind a near-uniform average). At
    the serving shape in bf16 it times the kernel, the plain version, and
    one ``F.scaled_dot_product_attention`` call over [CLS | group keys] as
-   a yardstick (the port never calls it), with CUDA events.
+   a yardstick (the port never calls it), with CUDA events, and prints the
+   bf16 kernel's cut of the group (heads and warps a block, streamed or
+   not, shared memory). K1 is also checked and timed at the long-clip
+   shape (B=2, T=128), where it takes the largest share of the forward.
 4. int8 kernels vs plain: K3 (the attention with its output quantized per
    token, both modes), K4 (LayerNorm -> int8, D=1024) and K5 (QuickGELU ->
    int8, D=4096) at (B=2, T=4) and the serving shape (B=8, T=16, N=256,
@@ -160,14 +164,48 @@ def phase_device():
     return name, card
 
 
+def _ptxas_report(log: str) -> list[dict]:
+    """ptxas -v's lines, one entry a compiled kernel: its (demangled) name,
+    registers a thread, spill stores and loads, static shared memory."""
+    entries = []
+    for ln in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", ln):
+            entries.append({"kernel": m.group(1)})
+        elif entries and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)):
+            entries[-1].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        elif entries and (m := re.search(r"Used (\d+) registers", ln)):
+            smem = re.search(r"(\d+) bytes smem", ln)
+            entries[-1].update(registers=int(m.group(1)), static_smem=int(smem.group(1)) if smem else 0)
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(e["kernel"] for e in entries),
+                               capture_output=True, text=True, check=True, timeout=60).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        names = []
+    if len(names) == len(entries):
+        for e, nm in zip(entries, names):
+            e["kernel"] = _strip_params(nm.replace("(anonymous namespace)::", "").removeprefix("void "))
+    return entries
+
+
+def _strip_params(name: str) -> str:
+    """A demangled function name without its trailing parameter list."""
+    depth = 0
+    for i in range(len(name) - 1, -1, -1):
+        depth += {")": 1, "(": -1}.get(name[i], 0)
+        if depth == 0:
+            return name[:i] if name.endswith(")") else name
+    return name
+
+
 def phase_build():
     from helping_hand_for_egocentric_videos_torch.ops import _build
 
     t0 = time.perf_counter()
     res = _build.build_all(verbose=True)
     for name, r in res.items():
-        ptxas = [ln.strip() for ln in r["log"].splitlines() if "registers" in ln or "spill" in ln]
-        say("build", source=f"csrc/{name}.cu", seconds=round(r["seconds"], 3), ptxas=ptxas)
+        say("build", source=f"csrc/{name}.cu", seconds=round(r["seconds"], 3))
+        for entry in _ptxas_report(r["log"]):
+            say("build-ptxas", source=f"csrc/{name}.cu", **entry)
     say("build", total_seconds=round(time.perf_counter() - t0, 3))
 
 
@@ -203,6 +241,24 @@ def _bound_ms(qkv, mode, peaks, quant_out=False) -> tuple[float, str]:
     return 1e3 * max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
 
 
+def _kernel_vs_plain(qkv, ck, cv, cq, mode):
+    """The kernel against the plain version in f32 on the same inputs ->
+    (the largest error of the patch output and the merged CLS output,
+    whether both are finite, the plain patch output)."""
+    import torch
+
+    from helping_hand_for_egocentric_videos_torch.ops import divided_attention as da
+
+    out, parts = da.divided_patch_attention(qkv, ck, cv, cq, mode=mode, heads=HEADS)
+    cls = da.merge_cls_partials(*parts, cq, ck, cv, HEADS)
+    f32 = [z.float() for z in (qkv, ck, cv, cq)]
+    ref, ref_parts = da.divided_patch_attention_ref(*f32, mode=mode, heads=HEADS)
+    ref_cls = da.merge_cls_partials(*ref_parts, *f32[3:], *f32[1:3], HEADS)
+    torch.cuda.synchronize()
+    err = max((out.float() - ref).abs().max().item(), (cls - ref_cls).abs().max().item())
+    return err, bool(torch.isfinite(out).all()) and bool(torch.isfinite(cls).all()), ref
+
+
 def phase_kernels(device, peaks):
     import torch
     import torch.nn.functional as F
@@ -218,14 +274,7 @@ def phase_kernels(device, peaks):
                 dname = str(dtype).removeprefix("torch.")
                 qkv = torch.randn(b, t, N, 3 * D, generator=gen, device=device).to(dtype)
                 ck, cv, cq = (torch.randn(b, D, generator=gen, device=device).to(dtype) for _ in range(3))
-                out, parts = da.divided_patch_attention(qkv, ck, cv, cq, mode=mode, heads=HEADS)
-                cls = da.merge_cls_partials(*parts, cq, ck, cv, HEADS)
-                f32 = [z.float() for z in (qkv, ck, cv, cq)]
-                ref, ref_parts = da.divided_patch_attention_ref(*f32, mode=mode, heads=HEADS)
-                ref_cls = da.merge_cls_partials(*ref_parts, *f32[3:], *f32[1:3], HEADS)
-                torch.cuda.synchronize()
-                err = max((out.float() - ref).abs().max().item(), (cls - ref_cls).abs().max().item())
-                finite = bool(torch.isfinite(out).all()) and bool(torch.isfinite(cls).all())
+                err, finite, ref = _kernel_vs_plain(qkv, ck, cv, cq, mode)
                 check = {"B": b, "T": t, "dtype": dname, "max_abs_err": err, "tolerance": TOL[dname]}
                 say("kernel-vs-plain", mode=mode, **check)
                 if not finite or not err <= TOL[dname]:
@@ -259,11 +308,56 @@ def phase_kernels(device, peaks):
             "timed_at": {"B": b, "T": t, "N": N, "H": HEADS, "dh": DH, "dtype": "bfloat16"},
             "checks": checks,
         }
-        say("kernel-timing", mode=mode, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-            bound_ms=bound_ms, bound_by=bound_by)
-        del qkv, ck, cv, cq, q, k, v, lib_out, ref, ref_parts
+        say("kernel-timing", mode=mode, B=b, T=t, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+            bound_ms=bound_ms, bound_by=bound_by, plan=_plan(N if mode == "space" else t))
+        del qkv, ck, cv, cq, q, k, v, lib_out, ref
         torch.cuda.empty_cache()
+    report["space"]["long_clip"] = _time_space_long(device, peaks, gen)
     return report
+
+
+def _plan(w: int) -> dict:
+    """The bf16 kernel's cut of a group of w rows at H=16, dh=64."""
+    import ctypes
+
+    from helping_hand_for_egocentric_videos_torch.ops._build import library
+
+    fn = library("divided_attention").hh_divided_attention_plan
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    plan = (ctypes.c_longlong * 4)()
+    if fn(w, HEADS, DH, plan):
+        raise RuntimeError(f"no plan for a group of {w} rows")
+    return dict(zip(("heads_a_block", "warps_a_block", "streamed", "smem_bytes"), plan))
+
+
+def _time_space_long(device, peaks, gen) -> dict:
+    """K1 at the long-clip shape (B=2, T=128) in bf16, where it takes 40% of
+    the busy time: checked against the plain version as above, then the
+    kernel, the plain version and one SDPA call timed."""
+    import torch
+    import torch.nn.functional as F
+
+    from helping_hand_for_egocentric_videos_torch.ops import divided_attention as da
+
+    b, t = 2, LONG_T
+    qkv = torch.randn(b, t, N, 3 * D, generator=gen, device=device).to(torch.bfloat16)
+    ck, cv, cq = (torch.randn(b, D, generator=gen, device=device).to(torch.bfloat16) for _ in range(3))
+    err, finite, _ = _kernel_vs_plain(qkv, ck, cv, cq, "space")
+    if not finite or not err <= TOL["bfloat16"]:
+        raise AssertionError(f"space kernel disagrees with the plain version at (B={b}, T={t}): {err}")
+    q, k, v = _sdpa_inputs(qkv, ck, cv, "space")
+    res = {
+        "B": b, "T": t, "max_abs_err": err, "tolerance": TOL["bfloat16"],
+        "ms": cuda_ms(lambda: da.divided_patch_attention(qkv, ck, cv, cq, mode="space", heads=HEADS), 20),
+        "plain_ms": cuda_ms(lambda: da.divided_patch_attention_ref(qkv, ck, cv, cq, mode="space", heads=HEADS), 5),
+        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20),
+    }
+    res["bound_ms"], res["bound_by"] = _bound_ms(qkv, "space", peaks)
+    say("kernel-timing", mode="space", **res)
+    del qkv, ck, cv, cq, q, k, v
+    torch.cuda.empty_cache()
+    return res
 
 
 def _quant_check(got, want) -> dict:

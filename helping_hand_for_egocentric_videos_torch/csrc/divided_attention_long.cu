@@ -48,30 +48,17 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "attention_mma.cuh"
+
 namespace {
+
+using namespace attn;
 
 constexpr int MAX_T = 256;
 constexpr int WARPS = 8;  // bf16: warps a block, each on 16-query tiles
 constexpr int KC = 64;    // bf16: keys per online-softmax step
 constexpr int PAD = 8;    // bf16: padding of a shared-memory row
 constexpr int JC = 16;    // f32: keys per online-softmax rescale
-constexpr unsigned FULL = 0xffffffffu;
-
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-// Max (is_max) or sum of v over the block; blockDim.x is a multiple of 32.
-__device__ float block_reduce(float v, bool is_max, float* red) {
-  for (int o = 16; o > 0; o >>= 1) {
-    const float w = __shfl_xor_sync(FULL, v, o);
-    v = is_max ? fmaxf(v, w) : v + w;
-  }
-  __syncthreads();  // red may still be read by an earlier reduction
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  v = red[0];
-  for (int i = 1; i < (int)(blockDim.x >> 5); ++i) v = is_max ? fmaxf(v, red[i]) : v + red[i];
-  return v;
-}
 
 // The CLS query's partials over the tube's keys (k_at(j, c), v_at(j, c) read
 // the staged rows), written at pidx; every thread of the block calls it.
@@ -105,30 +92,6 @@ __device__ void cls_partials(KAt k_at, VAt v_at, const float* cqs, float* pl, fl
     part_m[pidx] = mx;
     part_s[pidx] = sum;
   }
-}
-
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float dot_pair(uint32_t u, const float* w) {
-  const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
-  return f.x * w[0] + f.y * w[1];
-}
-
-// c += a (16x16, row) . b (16x8, col); bf16 in, f32 sums.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __host__ __device__ constexpr int pad16(int t) { return (t + 15) & ~15; }

@@ -31,9 +31,10 @@ route is fused, from the TPU's scoped-VMEM budget (``_temporal_block``,
 with their numbers). The port keeps those thresholds as they are: they
 choose the JAX package's *route*, and with it where the int8 path rounds,
 so each backend rounds where its JAX counterpart does. They say nothing
-about the card's memory: on an H100, K6 is the faster time kernel at every
-clip length measured (PERF.md, section 5), and ``needs_head_grid`` is
-kept only to mirror the JAX package's route.
+about the card's memory: on an H100 K2 and K6 each take every T up to
+their limits, which of them is faster at which T is measured in PERF.md
+(section 5, ``tools/torch_longclip_bench.py``), and ``needs_head_grid``
+is kept only to mirror the JAX package's route.
 """
 
 from __future__ import annotations
@@ -189,6 +190,8 @@ def _check_cuda_args(qkv, cls_k, cls_v, cls_q, heads: int):
             raise ValueError(f"{name} must be contiguous")
         if z is not qkv and tuple(z.shape) != (b, d3 // 3):
             raise ValueError(f"{name} must be (B, D) = {(b, d3 // 3)}, got {tuple(z.shape)}")
+    if qkv.data_ptr() % 16:  # the kernels copy its rows 16 bytes at a time
+        raise ValueError("qkv must start on a 16-byte boundary")
     return dh
 
 

@@ -84,6 +84,37 @@ def test_ref_matches_jax_kernel_interpret(jx, mode, t):
     np.testing.assert_allclose(got_cls, np.asarray(want_cls), atol=ATOL)
 
 
+BF16_TOL = 2e-2  # the card's bf16 tolerance (chip_smoke.py, test_cuda_kernel_matches_plain)
+
+
+@pytest.mark.parametrize("t", [4, 16])
+@pytest.mark.parametrize("mode", ["space", "time"])
+def test_ref_on_bf16_inputs_matches_jax_bf16_kernel_interpret(jx, mode, t):
+    """On the same bf16 inputs (seeded N(0, 1)), the port's plain version
+    (f32 arithmetic, output rounded to bf16) against the JAX kernel in
+    bf16, which rounds the probabilities to bf16 before P V as the card's
+    kernels do: the patch output and the merged CLS output within the
+    card's bf16 tolerance of 2e-2. Largest errors seen: patch output
+    0.0039 (space) and 0.0156 (time, t = 4), one bf16 step of the output;
+    merged CLS output 4.8e-4. So the card's gate is as loose as the JAX
+    kernel's own bf16 rounding, and no looser than one step of it."""
+    jnp, jax_da = jx.jnp, jx.da
+    rng = np.random.default_rng(7)
+    qkv = jnp.asarray(rng.normal(size=(B, t, N, 3 * D)).astype(np.float32)).astype(jnp.bfloat16)
+    cq, ck, cv = (jnp.asarray(rng.normal(size=(B, D)).astype(np.float32)).astype(jnp.bfloat16)
+                  for _ in range(3))
+    out, parts = jax_da.divided_patch_attention(qkv, ck, cv, cq, mode=mode, heads=HEADS, interpret=True)
+    want_cls = jax_da.merge_cls_partials(*parts, cq, ck, cv, HEADS)
+    assert out.dtype == jnp.bfloat16
+    tq, tk, tv, tqkv = (torch.from_numpy(np.array(z.astype(jnp.float32))).to(torch.bfloat16)
+                        for z in (cq, ck, cv, qkv))
+    got, got_parts = da.divided_patch_attention_ref(tqkv, tk, tv, tq, mode=mode, heads=HEADS)
+    got_cls = da.merge_cls_partials(*got_parts, tq, tk, tv, HEADS)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(out.astype(jnp.float32)), rtol=0, atol=BF16_TOL)
+    np.testing.assert_allclose(got_cls.numpy(), np.asarray(want_cls), rtol=0, atol=BF16_TOL)
+
+
 @pytest.mark.parametrize("t", [2, 4, 16])
 @pytest.mark.parametrize("mode", ["space", "time"])
 def test_ref_matches_jax_var_attention(jx, mode, t):
@@ -387,3 +418,71 @@ def test_cuda_headgrid_kernel_matches_plain(cuda_device, shape, dtype):
     atol = 1e-4 if dt == torch.float32 else 2e-2
     torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=atol)
     torch.testing.assert_close(cls, want_cls, rtol=0, atol=1e-4)
+
+
+# (mode, (B, T, N, H, dh)) for K1's and K2's tensor-core tilings: ragged
+# frames, frames too large for shared memory (N = 1024: streamed key tiles),
+# tubes from one frame to 128 (several heads a block below 4 query tiles),
+# a streamed tube (T = 1024), dh 32
+TILINGS = [
+    ("space", (1, 2, 49, 4, 64)), ("space", (1, 2, 196, 4, 64)), ("space", (1, 2, 257, 2, 64)),
+    ("space", (1, 2, 1024, 2, 64)), ("space", (1, 2, 196, 4, 32)), ("space", (1, 1, 1024, 2, 32)),
+    ("time", (2, 1, 16, 16, 64)), ("time", (1, 8, 16, 16, 64)), ("time", (1, 16, 32, 16, 64)),
+    ("time", (1, 17, 16, 8, 64)), ("time", (1, 33, 8, 4, 64)), ("time", (1, 64, 8, 16, 64)),
+    ("time", (1, 128, 8, 2, 64)), ("time", (1, 16, 16, 16, 32)), ("time", (1, 33, 8, 4, 32)),
+    ("time", (1, 1024, 2, 2, 64)),
+]
+
+
+def _tiling_inputs(shape, dt, device, seed):
+    b, t, n, heads, dh = shape
+    g = torch.Generator(device=device).manual_seed(seed)
+    qkv = torch.randn(b, t, n, 3 * heads * dh, generator=g, device=device).to(dt)
+    ck, cv, cq = (torch.randn(b, heads * dh, generator=g, device=device).to(dt) for _ in range(3))
+    return qkv, ck, cv, cq
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode, shape", TILINGS)
+def test_cuda_kernel_tilings_match_plain(cuda_device, mode, shape, dtype):
+    """K1 and K2 (time attention forced onto K2) at the tilings above: the
+    patch output at the card's tolerances (f32 1e-4, bf16 2e-2) and the
+    merged CLS output at 1e-4; one launch counted."""
+    heads = shape[3]
+    dt = getattr(torch, dtype)
+    qkv, ck, cv, cq = _tiling_inputs(shape, dt, cuda_device, seed=3)
+    attr = f"launches_{mode}"
+    before = getattr(da.divided_patch_attention, attr)
+    out, parts = da.divided_patch_attention(qkv, ck, cv, cq, mode=mode, heads=heads,
+                                            head_grid=False if mode == "time" else None)
+    assert getattr(da.divided_patch_attention, attr) == before + 1
+    want, want_parts = da.divided_patch_attention_ref(qkv, ck, cv, cq, mode=mode, heads=heads)
+    cls = da.merge_cls_partials(*parts, cq, ck, cv, heads)
+    want_cls = da.merge_cls_partials(*want_parts, cq, ck, cv, heads)
+    torch.cuda.synchronize()
+    assert out.dtype == dt and parts[0].shape == want_parts[0].shape
+    atol = 1e-4 if dt == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=atol)
+    torch.testing.assert_close(cls, want_cls, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode, shape", TILINGS)
+def test_cuda_quant_out_kernel_tilings_match_plain(cuda_device, mode, shape, dtype):
+    """K3 at the same tilings: codes within 1 of the plain version's, at
+    most 0.1% changed, scales within rtol 1e-5; CLS partials bit-equal to
+    those of K1/K2 on the same inputs."""
+    heads = shape[3]
+    dt = getattr(torch, dtype)
+    qkv, ck, cv, cq = _tiling_inputs(shape, dt, cuda_device, seed=4)
+    route = {"head_grid": False if mode == "time" else None}
+    (q, s), parts = da.divided_patch_attention(qkv, ck, cv, cq, mode=mode, heads=heads, quant_out=True, **route)
+    _, parts0 = da.divided_patch_attention(qkv, ck, cv, cq, mode=mode, heads=heads, **route)
+    want = da.divided_patch_attention_ref(qkv, ck, cv, cq, mode=mode, heads=heads, quant_out=True)[0]
+    torch.cuda.synchronize()
+    _assert_codes_close((q.cpu().numpy(), s.cpu().numpy()),
+                        (want[0].cpu().numpy(), want[1].cpu().numpy()), max_changed=1e-3)
+    for a, b_ in zip(parts, parts0):
+        torch.testing.assert_close(a, b_, rtol=0, atol=0)

@@ -26,7 +26,7 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 import chip_smoke  # noqa: E402
 
-OURS = ("divided_attention_kernel", "row_int8_kernel", "headgrid_")
+OURS = ("attention_bf16_kernel", "attention_f32_kernel", "row_int8_kernel", "headgrid_")
 GEMM = ("gemm", "Gemm", "nvjet", "cutlass", "sm90_", "cublas", "Kernel2")
 
 
