@@ -24,7 +24,9 @@ failed check raises and the script exits non-zero:
    behind a near-uniform average). At
    the serving shape in bf16 it times the kernel, the plain version, and
    one ``F.scaled_dot_product_attention`` call over [CLS | group keys] as
-   a yardstick (the port never calls it), with CUDA events, and prints the
+   a yardstick (the port never calls it), with CUDA events, the kernel
+   also by its device time in a ``torch.profiler`` trace (``ms``; the
+   events' time through the wrapper is ``events_ms``), and prints the
    bf16 kernel's cut of the group (heads and warps a block, streamed or
    not, shared memory). K1 is also checked and timed at the long-clip
    shape (B=2, T=128), where it takes the largest share of the forward.
@@ -34,7 +36,11 @@ failed check raises and the script exits non-zero:
    32768 rows), inputs seeded N(0, 1), the LayerNorm gamma 1 + 0.2 N(0, 1)
    and beta 0.1 N(0, 1): scales within rtol 1e-5 of the plain version's,
    codes within 1, at most 0.1% of the codes changed. At the serving shape
-   in bf16 each kernel and its plain version are timed with CUDA events.
+   in bf16 each kernel (device time in a profiler trace, and CUDA events
+   through the wrapper) and its plain version are timed, K4 and K5 beside
+   the bytes they move and the share of their bound they reach. K4 prints
+   its route (a warp a row, or a block a row) and is also checked at
+   D=4096 (its block route) and D=1000 (a ragged warp row).
    Then ``torch._int_mm`` at the qkv shape (32768 x 1024 . 1024 x 3072),
    in both operand layouts, beside ``F.linear`` in bf16, as a line of its
    own (the port's int8 matmul is ``torch._int_mm``).
@@ -61,9 +67,11 @@ failed check raises and the script exits non-zero:
 
 9. head-grid kernel vs plain: K6, the time attention of long clips, at
    (B=1, T=128), (B=2, T=128) and forced at (B=2, T=16), N=256, H=16,
-   dh=64, f32 and bf16, inputs seeded N(0, 1), against its plain version
-   with the tolerances of phase 3; at (B=2, T=128) in bf16 the kernel, the
-   plain version and one SDPA call over [CLS | tube] are timed.
+   dh=64, f32 and bf16, inputs seeded N(0, 1), against its plain version:
+   the patch output with the tolerances of phase 3, the merged CLS output
+   within 1e-4 in both types; at (B=1, T=128) and (B=2, T=128) in
+   bf16 the kernel, the plain version and one SDPA call over [CLS | tube]
+   are timed, beside the kernel's cut (persistent blocks, item slots).
 10. serve-long: synthetic checkpoints in the reference's layout, at the
    full width of TimeSformer-L (4 frames, as LaviLa releases it) and of the
    13-query decoder (4 frames, with its trajectory head), written under
@@ -78,7 +86,8 @@ failed check raises and the script exits non-zero:
 11. end to end at T=128: phases 7 and 8 on the served models, 2 clips of
    128 frames.
 
-Then one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
+Then one ``{"kernels": [...]}`` line, each kernel's launches summed over
+phases 5, 6 and 10, and, last, ``{"ok": true, "device":
 {...}}``. Time attention is zero-initialised in the model (its qkv feeds
 the kernel zeros), so the smoke gives its weights seeded N(0, 0.02) values.
 """
@@ -107,6 +116,7 @@ KERNEL_SHAPES = ((2, 4), (8, 16))  # (B, T); the last is the serving shape
 SERVE_T, RES = 16, 224
 BUCKETS = (1, 2, 4, 8)
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+CLS_TOL = 1e-4  # K6's merged CLS output in both types: its partials keep f32 precision
 REPO = "helping_hand_for_egocentric_videos_torch"
 TPU_KERNEL = "helping_hand_for_egocentric_videos_tpu/ops/divided_attention.py:103"
 TPU_ACT_QUANT = "helping_hand_for_egocentric_videos_tpu/ops/act_quant.py"
@@ -120,6 +130,9 @@ MLP = 4 * D
 # package's own int8-vs-f32 cosine at full depth and width (4 frames, CPU,
 # tools/int8_cosine_floor.py) less a margin; see PERF.md
 INT8_COS_FLOOR = 0.9899
+# the kernels' names in a profiler trace: K1/K2 and K3's attention pass, the
+# block-row pass of K3 and K5
+ATTENTION_KERNEL, ROW_KERNEL = "attention_bf16_kernel", "row_int8_kernel"
 # Dense peaks from NVIDIA's data sheets: memory bytes/s and ops/s by type.
 PEAKS = {
     "sxm": {"bytes": 3.35e12, "bfloat16": 989e12, "float32": 67e12},
@@ -144,6 +157,29 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int, kernels) -> float:
+    """Mean device time in ms of the kernels whose names contain one of
+    ``kernels`` (a string or a tuple of them) over ``iters`` calls of ``fn``,
+    from a ``torch.profiler`` trace: the kernels alone. Back-to-back calls
+    timed with events (``cuda_ms``) measure the host instead where the
+    wrapper's host time exceeds a short kernel's (K4)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels = (kernels,) if isinstance(kernels, str) else kernels
+    hits = [e for e in prof.key_averages() if any(k in e.key for k in kernels)]
+    us = sum(float(getattr(e, "self_device_time_total", None) or e.self_cuda_time_total) for e in hits)
+    if not us:
+        raise RuntimeError(f"the trace shows no device time for a kernel named like {kernels!r}")
+    return us / iters / 1e3
 
 
 def phase_device():
@@ -283,7 +319,10 @@ def phase_kernels(device, peaks):
         # timing at the serving shape in the serving type (the last inputs made)
         q, k, v = _sdpa_inputs(qkv, ck, cv, mode)
         lib_out = F.scaled_dot_product_attention(q, k, v)
-        ms = cuda_ms(lambda: da.divided_patch_attention(qkv, ck, cv, cq, mode=mode, heads=HEADS), 20)
+        def run():
+            return da.divided_patch_attention(qkv, ck, cv, cq, mode=mode, heads=HEADS)
+
+        ms, events_ms = device_ms(run, 20, ATTENTION_KERNEL), cuda_ms(run, 20)
         plain_ms = cuda_ms(lambda: da.divided_patch_attention_ref(qkv, ck, cv, cq, mode=mode, heads=HEADS), 5)
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20)
         bound_ms, bound_by = _bound_ms(qkv, mode, peaks)
@@ -300,6 +339,7 @@ def phase_kernels(device, peaks):
             "max_abs_err": checks[-1]["max_abs_err"],
             "tolerance": checks[-1]["tolerance"],
             "ms": ms,
+            "events_ms": events_ms,
             "plain_ms": plain_ms,
             "bound_ms": bound_ms,
             "bound_by": bound_by,
@@ -308,7 +348,7 @@ def phase_kernels(device, peaks):
             "timed_at": {"B": b, "T": t, "N": N, "H": HEADS, "dh": DH, "dtype": "bfloat16"},
             "checks": checks,
         }
-        say("kernel-timing", mode=mode, B=b, T=t, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        say("kernel-timing", mode=mode, B=b, T=t, ms=ms, events_ms=events_ms, plain_ms=plain_ms, library_ms=library_ms,
             bound_ms=bound_ms, bound_by=bound_by, plan=_plan(N if mode == "space" else t))
         del qkv, ck, cv, cq, q, k, v, lib_out, ref
         torch.cuda.empty_cache()
@@ -349,7 +389,9 @@ def _time_space_long(device, peaks, gen) -> dict:
     q, k, v = _sdpa_inputs(qkv, ck, cv, "space")
     res = {
         "B": b, "T": t, "max_abs_err": err, "tolerance": TOL["bfloat16"],
-        "ms": cuda_ms(lambda: da.divided_patch_attention(qkv, ck, cv, cq, mode="space", heads=HEADS), 20),
+        "ms": device_ms(lambda: da.divided_patch_attention(qkv, ck, cv, cq, mode="space", heads=HEADS), 20,
+                        ATTENTION_KERNEL),
+        "events_ms": cuda_ms(lambda: da.divided_patch_attention(qkv, ck, cv, cq, mode="space", heads=HEADS), 20),
         "plain_ms": cuda_ms(lambda: da.divided_patch_attention_ref(qkv, ck, cv, cq, mode="space", heads=HEADS), 5),
         "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20),
     }
@@ -379,12 +421,38 @@ def _quant_check(got, want) -> dict:
     return res
 
 
-def _rows_bound_ms(rows, d, in_bytes, ops_per_value, peaks) -> tuple[float, str]:
+def _rows_bytes(rows, d, in_bytes) -> int:
     """A per-row quantizing pass: read the rows once, write a code a value
-    and a scale a row; f32 arithmetic outside the tensor cores."""
-    nbytes = rows * d * (in_bytes + 1) + rows * 4
-    by_bytes, by_ops = nbytes / peaks["bytes"], rows * d * ops_per_value / peaks["float32"]
+    and a scale a row."""
+    return rows * d * (in_bytes + 1) + rows * 4
+
+
+def _rows_bound_ms(rows, d, in_bytes, ops_per_value, peaks) -> tuple[float, str]:
+    """The pass's bytes over the memory rate, or its f32 arithmetic outside
+    the tensor cores over their rate, whichever is larger."""
+    by_bytes = _rows_bytes(rows, d, in_bytes) / peaks["bytes"]
+    by_ops = rows * d * ops_per_value / peaks["float32"]
     return 1e3 * max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
+
+
+def _ln_plan(x) -> dict:
+    """K4's cut of the rows of x: its route and launch shape."""
+    import ctypes
+
+    import torch
+
+    from helping_hand_for_egocentric_videos_torch.ops._build import library
+
+    fn = library("act_quant").hh_layer_norm_int8_plan
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    plan = (ctypes.c_longlong * 4)()
+    d = x.shape[-1]
+    if fn(x.data_ptr(), x.numel() // d, d, int(x.dtype == torch.bfloat16), plan):
+        raise RuntimeError(f"no K4 plan for rows of {d}")
+    route = ("warp_row", "block_row")[plan[0]]
+    return {"route": route, "values_a_lane": plan[1], "blocks": plan[2], "threads_a_block": plan[3]}
 
 
 def phase_int8_kernels(device, peaks):
@@ -406,17 +474,21 @@ def phase_int8_kernels(device, peaks):
             raise AssertionError(f"{name} disagrees with its plain version: {shape} {res}")
         return res
 
-    def entry(name, source, replaces, last, timed, fn, plain, bound):
-        ms, plain_ms = cuda_ms(fn, 20), cuda_ms(plain, 5)
+    def entry(name, source, replaces, last, timed, fn, plain, bound, kernels, nbytes=None, **extra):
+        ms, events_ms, plain_ms = device_ms(fn, 20, kernels), cuda_ms(fn, 20), cuda_ms(plain, 5)
         bound_ms, bound_by = bound
-        say("kernel-timing", kernel=name, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        if nbytes is not None:  # the per-row passes: bytes moved and the share of the bound reached
+            extra.update(bytes_moved=nbytes, achieved_tb_per_s=nbytes / (ms * 1e-3) / 1e12,
+                         bound_share=bound_ms / ms)
+        say("kernel-timing", kernel=name, ms=ms, events_ms=events_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, **extra)
         return {
             "name": name, "route": "cuda", "source": f"{REPO}/{source}", "replaces": replaces,
             "launches": None, "max_abs_err": last["max_abs_err"],
             "tolerance": "scales rtol 1e-5, codes within 1, <= 0.1% of codes changed",
-            "codes_changed": last["codes_changed"], "ms": ms, "plain_ms": plain_ms,
+            "codes_changed": last["codes_changed"], "ms": ms, "events_ms": events_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "timed_at": {**timed, "dtype": "bfloat16"},
+            "timed_at": {**timed, "dtype": "bfloat16"}, **extra,
         }
 
     # K3: the attention output quantized per token over all heads
@@ -440,7 +512,7 @@ def phase_int8_kernels(device, peaks):
             {"B": b, "T": t, "N": N, "H": HEADS, "dh": DH},
             lambda: da.divided_patch_attention(qkv, ck, cv, cq, mode=mode, heads=HEADS, quant_out=True),
             lambda: da.divided_patch_attention_ref(qkv, ck, cv, cq, mode=mode, heads=HEADS, quant_out=True),
-            _bound_ms(qkv, mode, peaks, quant_out=True),
+            _bound_ms(qkv, mode, peaks, quant_out=True), (ATTENTION_KERNEL, ROW_KERNEL),
         )
         del qkv, ck, cv, cq, got, want, parts, parts0
         torch.cuda.empty_cache()
@@ -450,35 +522,98 @@ def phase_int8_kernels(device, peaks):
     with torch.no_grad():
         ln.weight.copy_(1.0 + 0.2 * torch.randn(D, generator=gen, device=device))
         ln.bias.copy_(0.1 * torch.randn(D, generator=gen, device=device))
-    for name, d, ops, fn, plain, line in (
+    for name, d, ops, fn, plain, line, kernel in (
         ("layer_norm_int8", D, 14, lambda x: aq.layer_norm_int8(ln, x, 1e-6),
-         lambda x: aq.layer_norm_int8_ref(ln, x, 1e-6), 45),
-        ("quick_gelu_int8", MLP, 12, aq.quick_gelu_int8, aq.quick_gelu_int8_ref, 57),
+         lambda x: aq.layer_norm_int8_ref(ln, x, 1e-6), 45, "ln_int8_warp_kernel"),
+        ("quick_gelu_int8", MLP, 12, aq.quick_gelu_int8, aq.quick_gelu_int8_ref, 57, ROW_KERNEL),
     ):
         for b, t in ROWS_SHAPES:
             for dtype in ((torch.float32, torch.bfloat16) if b * t < 64 else (torch.bfloat16,)):
                 x = torch.randn(b * t * N, d, generator=gen, device=device).to(dtype)
                 got, want = fn(x), plain(x)
                 torch.cuda.synchronize()
-                last = check(name, got, want, rows=x.shape[0], D=d, dtype=str(dtype).removeprefix("torch."))
+                plan = {"plan": _ln_plan(x)} if name == "layer_norm_int8" else {}
+                last = check(name, got, want, rows=x.shape[0], D=d, dtype=str(dtype).removeprefix("torch."),
+                             **plan)
+        rows = x.shape[0]
         report[name] = entry(
-            name, "csrc/act_quant.cu", f"{TPU_ACT_QUANT}:{line}", last, {"rows": x.shape[0], "D": d},
-            lambda: fn(x), lambda: plain(x), _rows_bound_ms(x.shape[0], d, x.element_size(), ops, peaks),
+            name, "csrc/act_quant.cu", f"{TPU_ACT_QUANT}:{line}", last, {"rows": rows, "D": d},
+            lambda: fn(x), lambda: plain(x), _rows_bound_ms(rows, d, x.element_size(), ops, peaks), kernel,
+            nbytes=_rows_bytes(rows, d, x.element_size()), **plan,
         )
         del x, got, want
         torch.cuda.empty_cache()
+
+    # K4 at two widths the model does not run, with the route each takes:
+    # 4096 (above 2048: a block a row) and 1000 (a warp a row whose last
+    # lanes hold fewer chunks)
+    other_routes = []
+    for d in (4 * D, 1000):
+        wide = nn.LayerNorm(d, device=device)
+        with torch.no_grad():
+            wide.weight.copy_(1.0 + 0.2 * torch.randn(d, generator=gen, device=device))
+            wide.bias.copy_(0.1 * torch.randn(d, generator=gen, device=device))
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(2 * 4 * N, d, generator=gen, device=device).to(dtype)
+            got, want = aq.layer_norm_int8(wide, x, 1e-6), aq.layer_norm_int8_ref(wide, x, 1e-6)
+            torch.cuda.synchronize()
+            info = {"rows": x.shape[0], "D": d, "dtype": str(dtype).removeprefix("torch."), "plan": _ln_plan(x)}
+            other_routes.append({**info, **check("layer_norm_int8", got, want, **info)})
+    report["layer_norm_int8"]["other_routes"] = other_routes
     return report
 
 
-def phase_headgrid(device, peaks):
-    """K6 against its plain version; timing at (B=2, T=128) in bf16."""
-    import torch
+def _headgrid_plan(t: int, items: int) -> dict:
+    """K6's bf16 cut for T frames and B*N*H items at dh=64."""
+    import ctypes
+
+    from helping_hand_for_egocentric_videos_torch.ops._build import library
+
+    fn = library("divided_attention_long").hh_time_attention_headgrid_plan
+    fn.argtypes = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    plan = (ctypes.c_longlong * 5)()
+    if fn(t, items, DH, plan):
+        raise RuntimeError(f"no head-grid plan for T={t}")
+    return dict(zip(("blocks", "warps_a_block", "item_slots", "smem_bytes", "blocks_an_sm"), plan))
+
+
+def _time_headgrid(qkv, ck, cv, cq, ref, peaks) -> dict:
+    """K6 (bf16), its plain version and one SDPA call over [CLS | tube] on
+    the same inputs, with CUDA events; the bound and the kernel's cut."""
     import torch.nn.functional as F
 
     from helping_hand_for_egocentric_videos_torch.ops import divided_attention as da
 
+    b, t = qkv.shape[:2]
+    q, k, v = _sdpa_inputs(qkv, ck, cv, "time")
+    lib_out = F.scaled_dot_product_attention(q, k, v)
+    lib_as_out = lib_out.reshape(b, N, HEADS, t, DH).permute(0, 3, 1, 2, 4).reshape(b, t, N, D)
+    res = {
+        "B": b, "T": t,
+        "ms": device_ms(lambda: da.divided_patch_attention(qkv, ck, cv, cq, mode="time", heads=HEADS), 20,
+                        "headgrid_bf16_kernel"),
+        "events_ms": cuda_ms(lambda: da.divided_patch_attention(qkv, ck, cv, cq, mode="time", heads=HEADS), 20),
+        "plain_ms": cuda_ms(lambda: da.time_attention_headgrid_ref(qkv, ck, cv, cq, heads=HEADS), 5),
+        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20),
+        "library_max_abs_err": (lib_as_out.float() - ref).abs().max().item(),
+    }
+    res["bound_ms"], res["bound_by"] = _bound_ms(qkv, "time", peaks)
+    res.update(bound_share=res["bound_ms"] / res["ms"], vs_library=res["ms"] / res["library_ms"],
+               plan=_headgrid_plan(t, b * N * HEADS))
+    say("kernel-timing", kernel="time_attention_headgrid", **res)
+    return res
+
+
+def phase_headgrid(device, peaks):
+    """K6 against its plain version; timing at (B=1, T=128) and (B=2,
+    T=128) in bf16."""
+    import torch
+
+    from helping_hand_for_egocentric_videos_torch.ops import divided_attention as da
+
     gen = torch.Generator(device=device).manual_seed(SEED + 5)
-    checks = []
+    checks, timings = [], {}
     for b, t in HEADGRID_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).removeprefix("torch.")
@@ -490,38 +625,35 @@ def phase_headgrid(device, peaks):
             ref, ref_parts = da.time_attention_headgrid_ref(*f32, heads=HEADS)
             ref_cls = da.merge_cls_partials(*ref_parts, *f32[3:], *f32[1:3], HEADS)
             torch.cuda.synchronize()
-            err = max((out.float() - ref).abs().max().item(), (cls - ref_cls).abs().max().item())
+            err = (out.float() - ref).abs().max().item()
+            cls_err = (cls - ref_cls).abs().max().item()
             finite = bool(torch.isfinite(out).all()) and bool(torch.isfinite(cls).all())
             check = {"B": b, "T": t, "dtype": dname, "head_grid_by_default": da.needs_head_grid(t, N, HEADS),
-                     "max_abs_err": err, "tolerance": TOL[dname]}
+                     "max_abs_err": err, "tolerance": TOL[dname], "cls_max_abs_err": cls_err,
+                     "cls_tolerance": CLS_TOL}
             say("kernel-vs-plain", kernel="time_attention_headgrid", **check)
-            if not finite or not err <= TOL[dname] or tuple(parts[0].shape) != (b, N, HEADS, 1):
+            if (not finite or not err <= TOL[dname] or not cls_err <= CLS_TOL
+                    or tuple(parts[0].shape) != (b, N, HEADS, 1)):
                 raise AssertionError(f"the head-grid kernel disagrees with its plain version: {check}")
             checks.append(check)
-            if (b, t, dtype) == (2, LONG_T, torch.bfloat16):
-                timed = (qkv, ck, cv, cq, ref, check)
-            del qkv, ck, cv, cq, out, parts, ref, ref_parts, f32
-    qkv, ck, cv, cq, ref, check = timed
-    q, k, v = _sdpa_inputs(qkv, ck, cv, "time")
-    lib_out = F.scaled_dot_product_attention(q, k, v)
-    ms = cuda_ms(lambda: da.divided_patch_attention(qkv, ck, cv, cq, mode="time", heads=HEADS), 20)
-    plain_ms = cuda_ms(lambda: da.time_attention_headgrid_ref(qkv, ck, cv, cq, heads=HEADS), 5)
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20)
-    bound_ms, bound_by = _bound_ms(qkv, "time", peaks)
-    b, t = qkv.shape[:2]
-    lib_as_out = lib_out.reshape(b, N, HEADS, t, DH).permute(0, 3, 1, 2, 4).reshape(b, t, N, D)
-    say("kernel-timing", kernel="time_attention_headgrid", ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-        bound_ms=bound_ms, bound_by=bound_by)
+            del out, parts, ref_parts, f32
+            if t == LONG_T and dtype == torch.bfloat16:
+                timings[b] = _time_headgrid(qkv, ck, cv, cq, ref, peaks)
+            del qkv, ck, cv, cq, ref
+            torch.cuda.empty_cache()
+    timed = timings[2]
     entry = {
         "name": "time_attention_headgrid", "route": "cuda",
         "source": f"{REPO}/csrc/divided_attention_long.cu", "replaces": TPU_HEADGRID,
-        "launches": None, "max_abs_err": check["max_abs_err"], "tolerance": check["tolerance"],
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": library_ms, "library_max_abs_err": (lib_as_out.float() - ref).abs().max().item(),
-        "timed_at": {"B": b, "T": t, "N": N, "H": HEADS, "dh": DH, "dtype": "bfloat16"}, "checks": checks,
+        "launches": None, "tolerance": TOL["bfloat16"],
+        "max_abs_err": next(c["max_abs_err"] for c in checks
+                            if (c["B"], c["T"], c["dtype"]) == (2, LONG_T, "bfloat16")),
+        **{k: timed[k] for k in ("ms", "events_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                 "library_max_abs_err", "plan")},
+        "timed_at": {"B": 2, "T": LONG_T, "N": N, "H": HEADS, "dh": DH, "dtype": "bfloat16"},
+        "at_B1": {k: timings[1][k] for k in ("ms", "events_ms", "plain_ms", "bound_ms", "library_ms", "plan")},
+        "checks": checks,
     }
-    del timed, qkv, ck, cv, cq, ref, q, k, v, lib_out, lib_as_out
-    torch.cuda.empty_cache()
     return entry
 
 
@@ -990,12 +1122,13 @@ def main():
     long16, long8, launches_long = phase_serve_long(card)
     phase_end_to_end(long16, "cuda", phase="end-to-end-long")
     phase_end_to_end_int8(long8, long16, "cuda", phase="end-to-end-long-int8")
+    # launches on the main path: the serving runs at 16 and at 128 frames, bf16 and int8
+    total = {k: launches[k] + launches8[k] + launches_long[k] for k in _counters()}
     counts = {
-        "space": launches["divided_attention_space"], "time": launches["divided_attention_time"],
-        "space_int8": launches8["divided_attention_space_int8"],
-        "time_int8": launches8["divided_attention_time_int8"],
-        "layer_norm_int8": launches8["layer_norm_int8"], "quick_gelu_int8": launches8["quick_gelu_int8"],
-        "headgrid": launches_long["time_attention_headgrid"],
+        "space": total["divided_attention_space"], "time": total["divided_attention_time"],
+        "space_int8": total["divided_attention_space_int8"], "time_int8": total["divided_attention_time_int8"],
+        "layer_norm_int8": total["layer_norm_int8"], "quick_gelu_int8": total["quick_gelu_int8"],
+        "headgrid": total["time_attention_headgrid"],
     }
     for key, n in counts.items():
         if n < 1:

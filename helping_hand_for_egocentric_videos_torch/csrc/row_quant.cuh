@@ -1,6 +1,7 @@
 // Per-row symmetric int8 quantization, fused with the op that produces the
-// row, for Hopper (sm_90a). Included by act_quant.cu (K4, K5) and
-// divided_attention.cu (K3's second pass).
+// row, for Hopper (sm_90a). Included by act_quant.cu (K5, and K4's rows
+// wider than its warp route takes) and divided_attention.cu (K3's second
+// pass).
 //
 // The rounding rule is the JAX package's `_quantize_rows`, `int8_linear`
 // and `quant_out` rule, bit for bit on the same f32 row:
@@ -33,6 +34,11 @@ enum class RowOp { kIdentity, kLayerNorm, kQuickGelu };
 
 __device__ __forceinline__ float load_f32(float x) { return x; }
 __device__ __forceinline__ float load_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// The code of y at inverse scale inv: clip(round_half_even(y * inv), +-127).
+__device__ __forceinline__ int8_t int8_code(float y, float inv) {
+  return static_cast<int8_t>(fminf(fmaxf(rintf(y * inv), -127.f), 127.f));
+}
 
 // Sum (is_max false) or max of v over the block; every thread gets the result.
 __device__ __forceinline__ float block_reduce(float v, bool is_max, float* red) {
@@ -105,7 +111,7 @@ row_int8_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
 #pragma unroll
   for (int i = 0; i < VPT; ++i) {
     const int c = i * kRowThreads + tid;
-    if (c < d) qr[c] = static_cast<int8_t>(fminf(fmaxf(rintf(v[i] * inv), -127.f), 127.f));
+    if (c < d) qr[c] = int8_code(v[i], inv);
   }
   if (tid == 0) scales[row] = s;
 }

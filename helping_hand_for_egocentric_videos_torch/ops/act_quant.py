@@ -79,6 +79,21 @@ def _outputs(x):
     return codes, scales
 
 
+_FNS: dict = {}
+
+
+def _entry(name: str, nptr: int, *tail):
+    """The kernel's C entry point with its argument types set, looked up
+    once (the wrappers run many times a forward)."""
+    fn = _FNS.get(name)
+    if fn is None:
+        fn = getattr(library("act_quant"), name)
+        fn.argtypes = [ctypes.c_void_p] * nptr + list(tail)
+        fn.restype = ctypes.c_int
+        _FNS[name] = fn
+    return fn
+
+
 def _raise_on(rc: int, name: str):
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
@@ -100,10 +115,8 @@ def layer_norm_int8(p, x, eps: float = 1e-6):
     if g.device != x.device or g.shape != (d,) or b.shape != (d,):
         raise ValueError(f"LayerNorm params must be ({d},) on {x.device}")
     codes, scales = _outputs(x)
-    fn = library("act_quant").hh_layer_norm_int8
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
-                                           ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _entry("hh_layer_norm_int8", 5, ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                ctypes.c_void_p)
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), g.data_ptr(), b.data_ptr(), codes.data_ptr(), scales.data_ptr(),
                 x.numel() // d, d, eps, int(x.dtype == torch.bfloat16),
@@ -123,10 +136,7 @@ def quick_gelu_int8(x):
     _check(x, "quick_gelu_int8")
     d = x.shape[-1]
     codes, scales = _outputs(x)
-    fn = library("act_quant").hh_quick_gelu_int8
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _entry("hh_quick_gelu_int8", 3, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), codes.data_ptr(), scales.data_ptr(), x.numel() // d, d,
                 int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream)

@@ -237,6 +237,8 @@ def _launch_headgrid(qkv, cls_k, cls_v, cls_q, heads: int):
     b, t, n, d3 = qkv.shape
     if t > MAX_HEADGRID_T:
         raise ValueError(f"the head-grid kernel takes T <= {MAX_HEADGRID_T}, got {t}")
+    if any(z.data_ptr() % 16 for z in (cls_q, cls_k, cls_v)):  # copied like qkv's rows
+        raise ValueError("the CLS rows must start on a 16-byte boundary")
     dev = qkv.device
     out = torch.empty((b, t, n, d3 // 3), dtype=qkv.dtype, device=dev)
     pm = torch.empty((b, n, heads, 1), dtype=torch.float32, device=dev)

@@ -120,9 +120,18 @@ def _assert_kernel_close(got, want):
     assert diff.count_nonzero().item() <= 1e-3 * diff.numel()
 
 
+# (rows, D): fewer rows than the 8 warps of a K4 block and ragged tails
+# (1, 3, 9, 33); the model's D = 1024; 768 (3 chunks a lane); 1000 (125
+# chunks of bf16: the last lanes hold fewer); 100 (bf16: not a whole number
+# of 16-byte chunks) and 4096 (K4's block route); 2048 (the widest row of
+# its warp route)
+ROWS_D = [(7, 128), (600, 100), (3, 1000), (4096, 1024), (512, 4096), (1, 1024), (3, 768),
+          (9, 100), (33, 4096), (33, 2048), (9, 1024)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("rows, d", [(7, 128), (600, 100), (3, 1000), (4096, 1024), (512, 4096)])
+@pytest.mark.parametrize("rows, d", ROWS_D)
 def test_cuda_kernels_match_plain(cuda_device, rows, d, dtype):
     dt = getattr(torch, dtype)
     gen = torch.Generator(device=cuda_device).manual_seed(0)
@@ -131,7 +140,38 @@ def test_cuda_kernels_match_plain(cuda_device, rows, d, dtype):
     with torch.no_grad():
         ln.weight.copy_(1.0 + 0.2 * torch.randn(d, generator=gen, device=cuda_device))
         ln.bias.copy_(0.1 * torch.randn(d, generator=gen, device=cuda_device))
+    before = (aq.layer_norm_int8.launches, aq.quick_gelu_int8.launches)
     got_ln, got_g = aq.layer_norm_int8(ln, x, 1e-6), aq.quick_gelu_int8(x)
     torch.cuda.synchronize()
+    assert (aq.layer_norm_int8.launches, aq.quick_gelu_int8.launches) == (before[0] + 1, before[1] + 1)
     _assert_kernel_close(got_ln, aq.layer_norm_int8_ref(ln, x, 1e-6))
     _assert_kernel_close(got_g, aq.quick_gelu_int8_ref(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [1024, 100, 4096])
+def test_cuda_layer_norm_int8_edge_rows(cuda_device, d, dtype):
+    """K4 on rows of zeros (with beta 0 the output is 0 and the scale the
+    1e-8 floor) and on rows with a mean of 32 and unit spread (a one-pass
+    variance E[x^2] - E[x]^2 would lose 3 of f32's 7 digits of it), and
+    on rows that start off a 16-byte boundary (K4 then takes its block
+    route), against the plain version."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    x = torch.randn(17, d, generator=gen, device=cuda_device)
+    x[0] = 0.0
+    x[1:9] += 32.0
+    x = x.to(dt)
+    ln = nn.LayerNorm(d, device=cuda_device)
+    with torch.no_grad():
+        ln.weight.copy_(1.0 + 0.2 * torch.randn(d, generator=gen, device=cuda_device))
+        ln.bias.zero_()
+    got = aq.layer_norm_int8(ln, x, 1e-6)
+    want = aq.layer_norm_int8_ref(ln, x, 1e-6)
+    torch.cuda.synchronize()
+    assert got[1][0].item() == pytest.approx(1e-8) and got[0][0].abs().max().item() == 0
+    _assert_kernel_close(got, want)
+    flat = torch.randn(16 * d + 1, generator=gen, device=cuda_device).to(dt)
+    off = flat[1:].view(16, d)  # one element past the allocation's start
+    _assert_kernel_close(aq.layer_norm_int8(ln, off, 1e-6), aq.layer_norm_int8_ref(ln, off, 1e-6))

@@ -394,13 +394,22 @@ def test_cuda_quant_out_kernel_matches_plain(cuda_device, mode, shape, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize(
-    "shape",  # (B, T, N, H, dh): T = 128 at full and small width, forced at T = 16, ragged T
-    [(1, 128, 256, 16, 64), (2, 128, 16, 2, 32), (2, 16, 256, 16, 64), (1, 37, 8, 4, 64), (1, 256, 4, 2, 64)],
+    "shape",  # (B, T, N, H, dh)
+    [
+        (1, 128, 256, 16, 64), (2, 128, 256, 16, 64),  # full width: more items than persistent blocks
+        (1, 128, 4, 2, 64),  # 8 items: fewer items than blocks
+        (1, 37, 8, 4, 64), (1, 100, 8, 4, 64), (1, 256, 4, 2, 64),  # ragged T, the largest T
+        (2, 1, 16, 4, 64), (2, 16, 256, 16, 64),  # forced at one frame and at 16
+        (2, 128, 16, 2, 32), (1, 37, 8, 4, 32),  # dh 32
+        (1, 128, 13, 4, 64),  # N not a multiple of 8
+        (2, 64, 8, 1, 32),  # D = 32: the narrowest row, 192 bytes of qkv a token
+    ],
 )
 def test_cuda_headgrid_kernel_matches_plain(cuda_device, shape, dtype):
     """K6 on the card against its plain version: the patch output (f32:
     only the order of the sums differs; bf16: the probabilities enter P V
-    in bf16 and the output is rounded) and the merged CLS output."""
+    in bf16 and the output is rounded), the partials' per-tube shape, the
+    merged CLS output and one launch counted."""
     b, t, n, heads, dh = shape
     d = heads * dh
     dt = getattr(torch, dtype)
@@ -414,10 +423,38 @@ def test_cuda_headgrid_kernel_matches_plain(cuda_device, shape, dtype):
     cls = da.merge_cls_partials(*parts, cq, ck, cv, heads)
     want_cls = da.merge_cls_partials(*want_parts, cq, ck, cv, heads)
     torch.cuda.synchronize()
-    assert out.dtype == dt and parts[0].shape == (b, n, heads, 1)
+    assert out.dtype == dt and parts[0].shape == (b, n, heads, 1) and parts[1].shape == (b, n, heads, 1)
+    assert parts[2].shape == (b, n, heads, dh)
     atol = 1e-4 if dt == torch.float32 else 2e-2
     torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=atol)
     torch.testing.assert_close(cls, want_cls, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_headgrid_wrapper_raises_on_what_it_cannot_copy(cuda_device):
+    """K6 copies qkv's rows and the CLS rows 16 bytes at a time: a qkv or a
+    CLS row off a 16-byte boundary, or T above 256, raises and launches
+    nothing."""
+    b, t, n, heads, dh = 1, 16, 8, 2, 64
+    d = heads * dh
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    flat = torch.randn(b * t * n * 3 * d + 8, generator=g, device=cuda_device).to(torch.bfloat16)
+    cls = torch.randn(3 * b * d + 8, generator=g, device=cuda_device).to(torch.bfloat16)
+    ck, cv, cq = (cls[i * d:(i + 1) * d].view(b, d) for i in range(3))
+    before = da.divided_patch_attention.launches_time_headgrid
+    bad_qkv = flat[1:1 + b * t * n * 3 * d].view(b, t, n, 3 * d)  # 2 bytes past a boundary
+    with pytest.raises(ValueError, match="16-byte"):
+        da.divided_patch_attention(bad_qkv, ck, cv, cq, mode="time", heads=heads, head_grid=True)
+    qkv = flat[:b * t * n * 3 * d].view(b, t, n, 3 * d)
+    bad_cq = cls[2 * d + 1:3 * d + 1].view(b, d)
+    with pytest.raises(ValueError, match="16-byte"):
+        da.divided_patch_attention(qkv, ck, cv, bad_cq, mode="time", heads=heads, head_grid=True)
+    long = torch.zeros(b, 257, 1, 3 * d, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="T <= 256"):
+        da.divided_patch_attention(long, ck, cv, cq, mode="time", heads=heads, head_grid=True)
+    assert da.divided_patch_attention.launches_time_headgrid == before
+    da.divided_patch_attention(qkv, ck, cv, cq, mode="time", heads=heads, head_grid=True)
+    assert da.divided_patch_attention.launches_time_headgrid == before + 1
 
 
 # (mode, (B, T, N, H, dh)) for K1's and K2's tensor-core tilings: ragged
