@@ -86,8 +86,31 @@ failed check raises and the script exits non-zero:
 11. end to end at T=128: phases 7 and 8 on the served models, 2 clips of
    128 frames.
 
+12. train: the pretraining step (``train.make_train_step``) on the frozen
+   full-width TimeSformer-L at 4 frames and the 13-query decoder with its
+   22047-class head, seeded random weights; a fixed batch of 16 uint8 clips
+   (one rank's share of the global 128 over 8 ranks), 5 captions a clip
+   (some empty: padded rows), pixel boxes with some rows zero, 4 noun ids
+   a clip with some padding, a seeded (582, 768) noun dictionary. Checks:
+   the kernel wrappers refuse inputs that require grad; the same state and
+   batch without dropout through the kernel route and the plain attention
+   (f32: total loss within rtol 1e-4, the same hand, object and noun
+   matches, each decoder gradient above rounding noise within cosine
+   0.999, grad_norm within rtol 1e-3; bf16 kernel route vs f32 plain: total
+   loss within rtol 5e-2, and the share of matches that differ); 8 steps
+   at lr 1e-4 with dropout from a seeded generator: finite metrics, the
+   last loss below the first, ``class_embed``, ``vid_proj`` and the backbone
+   bit-identical, no backbone ``.grad``, K1 and K2 24 times a step and
+   K3-K6 never (from the model's own ``_kernel_friendly``), the first step
+   with CUDA sync warnings on (none may fire) and the rest under
+   ``torch.cuda.set_sync_debug_mode("error")``. Then 2 warm-up and 10 timed
+   steps (CUDA events): steps/s, clips/s, the split of a step (backbone
+   forward; decoder, losses and backward; optimizer), peak memory and
+   ``mfu_bf16``; and K1 and K2 alone at the train shape (B=16, T=4) as in
+   phase 3.
+
 Then one ``{"kernels": [...]}`` line, each kernel's launches summed over
-phases 5, 6 and 10, and, last, ``{"ok": true, "device":
+phases 5, 6, 10 and 12, and, last, ``{"ok": true, "device":
 {...}}``. Time attention is zero-initialised in the model (its qkv feeds
 the kernel zeros), so the smoke gives its weights seeded N(0, 0.02) values.
 """
@@ -102,6 +125,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import replace
@@ -1098,6 +1122,340 @@ def phase_serve_long(card, device="cuda", backbone="timesformer_large", frames=L
     return served[False][0], served[True][0], {k: served[False][1][k] + served[True][1][k] for k in _counters()}
 
 
+TRAIN_B, TRAIN_T, TRAIN_R = 16, 4, 5  # one rank's share of the global batch 128 over 8 ranks
+TRAIN_NOUNS, TRAIN_VERBS, TRAIN_STEPS, TRAIN_LR = 582, 118, 8, 1e-4
+TRAIN_WARM, TRAIN_TIMED = 2, 10
+CAPTIONS = ("#C C cuts the onion on the board", "#C C opens the fridge", "#C C washes the knife in the sink",
+            "#C C picks up a cup", "")  # the empty caption is a padded row
+
+
+def build_train_inputs(device, backbone_name="timesformer_large", b=TRAIN_B, t=TRAIN_T, res=RES,
+                       nouns=TRAIN_NOUNS, verbs=TRAIN_VERBS):
+    """Seeded random full-width models (time attention N(0, 0.02)) and a
+    fixed batch of b clips of t x res x res uint8 on ``device``: R captions
+    a clip (some empty, so some rows are padding), pixel boxes with some
+    zero rows, 4 noun ids a clip with some padding, and a seeded (nouns,
+    768) noun dictionary. -> (lavila_cfg, backbone, dec_cfg, decoder,
+    batch, noun_dict)."""
+    import torch
+
+    from helping_hand_for_egocentric_videos_torch.data import ClipTokenizer
+    from helping_hand_for_egocentric_videos_torch.models import DecoderConfig, Lavila, ObjDecoder, lavila
+
+    lcfg = getattr(lavila, f"{backbone_name}_config")(num_frames=t)
+    dcfg = DecoderConfig(num_queries=13, feature_dim=lcfg.visual.width, text_width=lcfg.text.width, num_frames=t,
+                         patches_per_frame=lcfg.visual.patches_per_frame, pred_traj=True)
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    backbone = Lavila(lcfg, generator=gen, device=device)
+    decoder = ObjDecoder(dcfg, generator=gen, device=device)
+    with torch.no_grad():  # as build_serving_model: a non-zero time attention
+        for blk in backbone.visual.blocks:
+            blk.timeattn.qkv.weight.normal_(0.0, 0.02, generator=gen)
+            blk.timeattn.proj.weight.normal_(0.0, 0.02, generator=gen)
+    rng = np.random.default_rng(SEED + 7)
+    captions = [CAPTIONS[(i * 3 + i // TRAIN_R) % len(CAPTIONS)] for i in range(b * TRAIN_R)]
+    boxes = np.concatenate([rng.random((b, t, 4, 2)) * 150, np.zeros((b, t, 4, 2))], -1)
+    boxes[..., 2:] = boxes[..., :2] + 20 + rng.random((b, t, 4, 2)) * 60
+    boxes[rng.random((b, t, 4)) < 0.25] = 0.0  # absent hands and objects
+    noun_ids = rng.integers(1, nouns, size=(b, 4))
+    noun_ids[rng.random((b, 4)) < 0.3] = 0  # padding nouns
+    batch = {
+        "video": rng.integers(0, 256, size=(b, t, res, res, 3), dtype=np.uint8),
+        "tokens": ClipTokenizer()(captions).astype(np.int64),
+        "noun_vec": (rng.random((b, nouns)) < 0.01).astype(np.float32),
+        "verb_vec": (rng.random((b, verbs)) < 0.02).astype(np.float32),
+        "boxes": boxes.astype(np.float32),
+        "nouns": noun_ids,
+    }
+    batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    noun_dict = torch.randn(nouns, lcfg.text.width, generator=gen, device=device)
+    return lcfg, backbone, dcfg, decoder, batch, noun_dict
+
+
+def _train_matches(backbone, lcfg, decoder, dcfg, tcfg, batch, noun_dict) -> dict:
+    """The step's three matchings (hands, objects, nouns) without dropout:
+    target_to_pred of each, from the step's own functions."""
+    import torch
+
+    from helping_hand_for_egocentric_videos_torch.losses import compute_box_loss
+    from helping_hand_for_egocentric_videos_torch.metrics import sim_matrix
+    from helping_hand_for_egocentric_videos_torch.models.obj_decoder import decoder_forward, obj_proj, txt_proj
+    from helping_hand_for_egocentric_videos_torch.ops.lap import solve_lap_batch
+    from helping_hand_for_egocentric_videos_torch.ops.preprocess import resize_normalize
+    from helping_hand_for_egocentric_videos_torch.train import backbone_features
+
+    with torch.no_grad():
+        video = resize_normalize(batch["video"], tcfg.input_res)
+        grid, _ = backbone_features(backbone, lcfg, video, batch["tokens"], dtype=tcfg.backbone_dtype)
+        out = decoder_forward(decoder, dcfg, grid.float())
+        b, t = grid.shape[:2]
+        kw = {"num_queries": tcfg.num_queries, "resize": tcfg.resize}
+        hands = compute_box_loss("hand_boxes", out.pred_boxes, batch["boxes"][:, :, :2].reshape(b * t, 2, 4), **kw)
+        objs = compute_box_loss("obj_boxes", out.pred_boxes, batch["boxes"][:, :, 2:].reshape(b * t, 2, 4), **kw)
+        nouns = txt_proj(decoder, noun_dict)[batch["nouns"]]
+        cost = (-sim_matrix(nouns, obj_proj(decoder, out.hs[-1])[:, :-1])).transpose(1, 2)
+        t2p, _ = solve_lap_batch(cost, batch["nouns"] != 0)
+    return {"hands": hands[1]["target_to_pred"], "objects": objs[1]["target_to_pred"], "nouns": t2p}
+
+
+def _one_step(backbone, lcfg, decoder, dcfg, tcfg, batch, noun_dict, device):
+    """One step without dropout from a copy of ``decoder`` -> (metrics,
+    gradients by name, matches)."""
+    import copy
+
+    from helping_hand_for_egocentric_videos_torch.train import TrainState, make_train_step
+
+    state = TrainState.create(copy.deepcopy(decoder), tcfg, device=device)
+    matches = _train_matches(backbone, lcfg, state.decoder, dcfg, tcfg, batch, noun_dict)
+    _, m = make_train_step(dcfg, lcfg, tcfg)(state, backbone, batch, noun_dict)
+    grads = {n: p.grad for n, p in state.decoder.named_parameters() if p.grad is not None}
+    return {k: float(v) for k, v in m.items()}, grads, matches
+
+
+def _train_vs_plain(backbone, lcfg, decoder, dcfg, batch, noun_dict, device) -> dict:
+    """The same state and batch, dropout off, through the kernel route and
+    the plain attention: f32 against f32, bf16 against f32 plain."""
+    import torch
+
+    from helping_hand_for_egocentric_videos_torch.train import TrainConfig
+
+    plain_cfg = replace(lcfg, visual=replace(lcfg.visual, attention_backend="reference"))
+    f32 = TrainConfig(lr=TRAIN_LR, backbone_dtype=torch.float32)
+    mk, gk, tk = _one_step(backbone, lcfg, decoder, dcfg, f32, batch, noun_dict, device)
+    mp, gp, tp = _one_step(backbone, plain_cfg, decoder, dcfg, f32, batch, noun_dict, device)
+    mb, _, tb = _one_step(backbone, lcfg, decoder, dcfg, replace(f32, backbone_dtype=torch.bfloat16), batch,
+                          noun_dict, device)
+    # the cosine of each gradient that rises above rounding noise; the key
+    # biases' gradients are 0 in exact arithmetic (a softmax ignores a
+    # constant added to a row of logits), so theirs is noise on both routes
+    floor = 1e-6 * mp["grad_norm"]
+    noise = sorted(n for n, g in gp.items() if float(g.norm()) <= floor)
+    cos = {n: float(torch.nn.functional.cosine_similarity(g.flatten(), gp[n].flatten(), dim=0))
+           for n, g in gk.items() if n not in noise}
+    worst = min(cos, key=cos.get)
+    same = {k: bool(torch.equal(tk[k], tp[k])) for k in tk}
+    differ_bf16 = {k: float((tb[k] != tp[k]).float().mean()) for k in tk}
+    res = {
+        "f32_total_loss": {"kernel": mk["total_loss"], "plain": mp["total_loss"],
+                           "rel_err": abs(mk["total_loss"] - mp["total_loss"]) / abs(mp["total_loss"]),
+                           "rtol": 1e-4},
+        "f32_matches_equal": same,
+        "f32_grad_cosine_min": {"param": worst, "cosine": cos[worst], "limit": 0.999},
+        "f32_grad_norm": {"kernel": mk["grad_norm"], "plain": mp["grad_norm"],
+                          "rel_err": abs(mk["grad_norm"] - mp["grad_norm"]) / mp["grad_norm"], "rtol": 1e-3},
+        "bf16_total_loss": {"kernel": mb["total_loss"], "plain_f32": mp["total_loss"],
+                            "rel_err": abs(mb["total_loss"] - mp["total_loss"]) / abs(mp["total_loss"]),
+                            "rtol": 5e-2},
+        "bf16_matches_differing_share": differ_bf16,
+        "grads_compared": len(cos), "grads_at_rounding_noise": noise,
+    }
+    say("train-vs-plain", **res)
+    if set(gk) != set(gp) or not all(np.isfinite(list(mk.values()))):
+        raise AssertionError("the kernel route's step has other gradients than the plain route's")
+    if not (res["f32_total_loss"]["rel_err"] <= 1e-4 and all(same.values()) and cos[worst] >= 0.999
+            and res["f32_grad_norm"]["rel_err"] <= 1e-3 and res["bf16_total_loss"]["rel_err"] <= 5e-2):
+        raise AssertionError(f"the train step's kernel route disagrees with its plain route: {res}")
+    return res
+
+
+def _sync_sites(fn) -> list[str]:
+    """Run ``fn`` with CUDA sync warnings on -> where each sync was asked
+    for: the innermost frames of the Python stack at each warning."""
+    import traceback
+    import warnings
+
+    import torch
+
+    sites = []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing CUDA operation" in str(message):  # not the mode's own notice
+            frames = [f"{f.filename}:{f.lineno} {f.name}" for f in traceback.extract_stack()[:-1]]
+            sites.append(" <- ".join(reversed(frames[-6:])))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sorted(set(sites))
+
+
+def _train_guard(device) -> dict:
+    """The kernel wrappers refuse inputs that require grad with grad mode on."""
+    import torch
+
+    from helping_hand_for_egocentric_videos_torch.ops import act_quant as aq
+    from helping_hand_for_egocentric_videos_torch.ops import divided_attention as da
+
+    qkv = torch.zeros(1, TRAIN_T, N, 3 * D, device=device, requires_grad=True)
+    cls = [torch.zeros(1, D, device=device) for _ in range(3)]
+    raised = {}
+    for name, call in (("divided_patch_attention", lambda: da.divided_patch_attention(qkv, *cls, mode="space",
+                                                                                       heads=HEADS)),
+                       ("layer_norm_int8", lambda: aq.layer_norm_int8(torch.nn.LayerNorm(D, device=device),
+                                                                      qkv[..., :D])),
+                       ("quick_gelu_int8", lambda: aq.quick_gelu_int8(qkv[..., :D]))):
+        try:
+            call()
+            raised[name] = False
+        except RuntimeError as e:
+            raised[name] = "no backward" in str(e)
+    if not all(raised.values()):
+        raise AssertionError(f"a kernel wrapper took an input that requires grad: {raised}")
+    return raised
+
+
+def _time_train_shape(device, peaks) -> dict:
+    """K1 and K2 alone at the train shape (B=16, T=4) in bf16: checked
+    against the plain version, then device time in a profiler trace, CUDA
+    events, the plain version and one SDPA call, beside the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from helping_hand_for_egocentric_videos_torch.ops import divided_attention as da
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 9)
+    out = {}
+    for mode in ("space", "time"):
+        qkv = torch.randn(TRAIN_B, TRAIN_T, N, 3 * D, generator=gen, device=device).to(torch.bfloat16)
+        ck, cv, cq = (torch.randn(TRAIN_B, D, generator=gen, device=device).to(torch.bfloat16) for _ in range(3))
+        err, finite, _ = _kernel_vs_plain(qkv, ck, cv, cq, mode)
+        if not finite or not err <= TOL["bfloat16"]:
+            raise AssertionError(f"{mode} kernel disagrees with the plain version at the train shape: {err}")
+        q, k, v = _sdpa_inputs(qkv, ck, cv, mode)
+
+        def run(qkv=qkv, ck=ck, cv=cv, cq=cq, mode=mode):
+            return da.divided_patch_attention(qkv, ck, cv, cq, mode=mode, heads=HEADS)
+
+        res = {"B": TRAIN_B, "T": TRAIN_T, "max_abs_err": err, "tolerance": TOL["bfloat16"],
+               "ms": device_ms(run, 20, ATTENTION_KERNEL), "events_ms": cuda_ms(run, 20),
+               "plain_ms": cuda_ms(lambda: da.divided_patch_attention_ref(qkv, ck, cv, cq, mode=mode, heads=HEADS), 5),
+               "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20)}
+        res["bound_ms"], res["bound_by"] = _bound_ms(qkv, mode, peaks)
+        say("kernel-timing", mode=mode, at="train", **res)
+        out[mode] = res
+        del qkv, ck, cv, cq, q, k, v
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_train(card, peaks, device="cuda", backbone_name="timesformer_large", b=TRAIN_B):
+    """The pretraining step at full width: kernel route vs plain route,
+    8 steps with dropout (launch counts, frozen parameters, no host sync),
+    then timing. -> (launches of the main path, K1/K2 at the train shape)."""
+    import torch
+
+    from helping_hand_for_egocentric_videos_torch.train import TrainConfig, TrainState, make_train_step
+    from helping_hand_for_egocentric_videos_torch.train.step import backbone_features, pretrain_loss_and_metrics
+    from helping_hand_for_egocentric_videos_torch.ops.preprocess import resize_normalize
+    from helping_hand_for_egocentric_videos_torch.utils.flops import train_step_flops_per_clip
+
+    t0 = time.perf_counter()
+    lcfg, backbone, dcfg, decoder, batch, noun_dict = build_train_inputs(device, backbone_name, b)
+    build_s = time.perf_counter() - t0
+    guard = _train_guard(device)
+    vs_plain = _train_vs_plain(backbone, lcfg, decoder, dcfg, batch, noun_dict, device)
+
+    tcfg = TrainConfig(lr=TRAIN_LR)  # bf16 backbone, the default
+    state = TrainState.create(decoder, tcfg, device=device)
+    step = make_train_step(dcfg, lcfg, tcfg)
+    gen = torch.Generator(device=device).manual_seed(SEED + 8)
+    frozen = {k: v.clone() for k, v in decoder.state_dict().items() if k.split(".")[0] in ("class_embed", "vid_proj")}
+    backbone_before = [p.detach().clone() for p in backbone.parameters()]
+    # one step of the model's own route: K1 and K2 once a block at T=4
+    per_step = launches_per_forward(types.SimpleNamespace(lavila_cfg=lcfg, int8=False))
+    box, metrics = {"state": state}, []
+
+    def one_step():
+        box["state"], m = step(box["state"], backbone, batch, noun_dict, gen)
+        metrics.append(m)
+        counts.append(read_counts())
+
+    # ---- the main path: counts set to 0 just before, read just after
+    reset_counts()
+    counts = []
+    syncs = _sync_sites(one_step)  # the first step with sync warnings on: where it waits for the device
+    if syncs:
+        raise AssertionError(f"the train step waits for the device at {syncs}")
+    torch.cuda.set_sync_debug_mode("error")  # any host sync inside steps 2-8 raises
+    try:
+        for _ in range(TRAIN_STEPS - 1):
+            one_step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    launches = read_counts()
+    # ----
+    state = box["state"]
+    for i, c in enumerate(counts):
+        if c != {k: v * (i + 1) for k, v in per_step.items()}:
+            raise AssertionError(f"step {i + 1}: {c} launches, want {per_step} a step")
+    losses = [float(m["total_loss"]) for m in metrics]
+    finite = all(np.isfinite(float(v)) for m in metrics for v in m.values())
+    frozen_same = all(torch.equal(v, state.decoder.state_dict()[k]) for k, v in frozen.items())
+    backbone_same = all(torch.equal(a, p) for a, p in zip(backbone_before, backbone.parameters()))
+    backbone_no_grad = all(p.grad is None for p in backbone.parameters())
+    del backbone_before
+    say("train-steps", card=card, steps=TRAIN_STEPS, lr=TRAIN_LR, total_loss=losses,
+        last_metrics={k: float(v) for k, v in metrics[-1].items()}, launches_per_step=per_step,
+        launches=launches, finite=finite, class_embed_vid_proj_unchanged=frozen_same,
+        backbone_unchanged=backbone_same, backbone_without_grad=backbone_no_grad, host_syncs_in_step=syncs,
+        sync_debug_mode="warn for step 1, error for steps 2-8", grad_guard_raised=guard, build_seconds=build_s)
+    if not (finite and losses[-1] < losses[0] and frozen_same and backbone_same and backbone_no_grad):
+        raise AssertionError("the train steps did not move as they must (see the train-steps line)")
+
+    # ---- timing: 2 warm-up steps, then 10 timed with CUDA events
+    for _ in range(TRAIN_WARM):
+        state, _ = step(state, backbone, batch, noun_dict, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(TRAIN_TIMED):
+        state, m = step(state, backbone, batch, noun_dict, gen)
+    end.record()
+    end.synchronize()
+    step_ms = start.elapsed_time(end) / TRAIN_TIMED
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # the step's three parts, each between CUDA events, over as many steps
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    split = np.zeros(3)
+    for _ in range(TRAIN_TIMED):
+        ev[0].record()
+        video = resize_normalize(batch["video"], tcfg.input_res)
+        grid, fmap = backbone_features(backbone, lcfg, video, batch["tokens"], dtype=tcfg.backbone_dtype)
+        ev[1].record()
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, _ = pretrain_loss_and_metrics(state.decoder, dcfg, tcfg, grid.float(), fmap.float(), batch["tokens"],
+                                            batch["noun_vec"], batch["verb_vec"], batch["boxes"], batch["nouns"],
+                                            noun_dict, generator=gen)
+        loss.backward()
+        ev[2].record()
+        state.optimizer.step()
+        ev[3].record()
+        ev[3].synchronize()
+        split += [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+    split /= TRAIN_TIMED
+    flops = train_step_flops_per_clip(lcfg, dcfg, rephrase_factor=TRAIN_R)
+    clips_per_s = b / (step_ms * 1e-3)
+    timing = {
+        "card": card, "B": b, "T": TRAIN_T, "step_ms": step_ms, "steps_per_s": 1e3 / step_ms,
+        "clips_per_s": clips_per_s, "split_ms": {"backbone_forward": split[0], "decoder_losses_backward": split[1],
+                                                 "optimizer": split[2]},
+        "tflop_per_clip": flops / 1e12, "mfu_bf16": flops * clips_per_s / peaks["bfloat16"],
+        "peak_memory_gb": peak_gb, "timed_steps": TRAIN_TIMED, "warmup_steps": TRAIN_WARM,
+    }
+    say("train-timing", **timing)
+    del state, backbone, decoder, batch, noun_dict, grid, fmap, video, loss
+    torch.cuda.empty_cache()
+    return launches, _time_train_shape(device, peaks), {"vs_plain": vs_plain, "timing": timing}
+
+
 def main():
     name, card = phase_device()
     import torch
@@ -1122,8 +1480,14 @@ def main():
     long16, long8, launches_long = phase_serve_long(card)
     phase_end_to_end(long16, "cuda", phase="end-to-end-long")
     phase_end_to_end_int8(long8, long16, "cuda", phase="end-to-end-long-int8")
-    # launches on the main path: the serving runs at 16 and at 128 frames, bf16 and int8
-    total = {k: launches[k] + launches8[k] + launches_long[k] for k in _counters()}
+    del long16, long8
+    torch.cuda.empty_cache()
+    launches_train, train_shape, _ = phase_train(card, peaks)
+    for mode in ("space", "time"):
+        report[mode]["train_shape"] = train_shape[mode]
+    # launches on the main path: the serving runs at 16 and at 128 frames, bf16
+    # and int8, and the train steps
+    total = {k: launches[k] + launches8[k] + launches_long[k] + launches_train[k] for k in _counters()}
     counts = {
         "space": total["divided_attention_space"], "time": total["divided_attention_time"],
         "space_int8": total["divided_attention_space_int8"], "time_int8": total["divided_attention_time_int8"],

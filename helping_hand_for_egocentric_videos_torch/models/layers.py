@@ -6,7 +6,8 @@ Parameters live in ``nn.Module`` containers (``nn.Linear`` with torch's
 math is plain functions over them, so each model's forward reads like its
 JAX counterpart. Weights are cast to the activations' type at use, which
 is free when they already match. Initialisers take a ``torch.Generator``
-and mirror the JAX ``*_init`` functions' distributions.
+and mirror the JAX ``*_init`` functions' distributions. Dropout draws
+from a ``torch.Generator`` the caller passes; without one there is none.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ __all__ = [
     "quick_gelu",
     "MultiheadAttention",
     "multi_head_attention",
+    "dropout",
 ]
 
 
@@ -93,11 +95,16 @@ def _merge_heads(x):
     return x.transpose(1, 2).reshape(b, n, h * dh)
 
 
-def multi_head_attention(p: MultiheadAttention, q_in, k_in, v_in, num_heads: int, mask=None):
+def multi_head_attention(p: MultiheadAttention, q_in, k_in, v_in, num_heads: int, mask=None,
+                         return_probs: bool = False, generator=None, dropout_rate: float = 0.0):
     """torch.nn.MultiheadAttention semantics, batch first.
 
     q_in/k_in/v_in: (B, Nq/Nk, D). ``mask``: additive float mask
-    broadcastable to (B, H, Nq, Nk). The softmax runs in f32.
+    broadcastable to (B, H, Nq, Nk). The softmax runs in f32. With
+    ``return_probs`` also returns the head-averaged weights (B, Nq, Nk).
+    ``generator``/``dropout_rate``: nn.MultiheadAttention's dropout of the
+    softmax weights (inverted-scaled, not renormalised), drawn only when a
+    generator is given; ``return_probs`` reports the weights before it.
     """
     q = _split_heads(linear(p.wq, q_in), num_heads)
     k = _split_heads(linear(p.wk, k_in), num_heads)
@@ -107,4 +114,17 @@ def multi_head_attention(p: MultiheadAttention, q_in, k_in, v_in, num_heads: int
     if mask is not None:
         logits = logits + mask
     probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
-    return linear(p.wo, _merge_heads(probs @ v))
+    out = linear(p.wo, _merge_heads(dropout(generator, probs, dropout_rate) @ v))
+    if return_probs:
+        return out, probs.mean(dim=1)
+    return out
+
+
+def dropout(generator, x, rate: float, deterministic: bool = False):
+    """Inverted dropout: keep each value with probability ``1 - rate`` and
+    scale it by ``1 / (1 - rate)``. Off when ``deterministic``, at rate 0,
+    or without a generator (which must be on ``x``'s device)."""
+    if deterministic or rate == 0.0 or generator is None:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)

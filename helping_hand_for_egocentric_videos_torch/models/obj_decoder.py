@@ -1,7 +1,7 @@
 """Object decoder: DETR-style transformer over frozen backbone features.
 
-Counterpart of ``helping_hand_for_egocentric_videos_tpu/models/obj_decoder.py``,
-in eval mode (no dropout). Given the backbone's patch-token grid of a
+Counterpart of ``helping_hand_for_egocentric_videos_tpu/models/obj_decoder.py``.
+Given the backbone's patch-token grid of a
 T-frame clip and a set of learned queries, a pre-norm decoder
 (self-attention first) cross-attends into the LayerNormed memory and emits
 per-query boxes (per frame under trajectory conditioning), class logits,
@@ -12,6 +12,12 @@ Query layout: queries 0:2 predict hand boxes, 2:num_queries-1 object
 boxes, and the last query is the video summary embedding for retrieval.
 With ``num_queries == 1`` one query decodes ``n_decode`` boxes through a
 query-index embedding.
+
+Train mode (``deterministic=False`` with a ``torch.Generator``) draws six
+dropouts a layer, in this order: the self-attention weights, the
+self-attention residual, the cross-attention weights, the cross-attention
+residual, the FFN hidden activation and the FFN residual. Eval mode (the
+default) draws none.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from torch import nn
 
 from .layers import (
     MultiheadAttention,
+    dropout,
     layer_norm,
     layer_norm_init,
     linear,
@@ -47,6 +54,7 @@ class DecoderConfig:
     nhead: int = 8
     num_layers: int = 6
     dim_feedforward: int = 2048
+    dropout: float = 0.1
     num_queries: int = 13  # 12 object/hand queries + 1 summary
     num_classes: int = 22047  # the reference keeps an (unused) class head
     feature_dim: int = 1024  # backbone width
@@ -144,16 +152,19 @@ def _bbox_mlp(params: ObjDecoder, x):
     return linear(params.bbox_mlp[2], h)
 
 
-def _decoder_layer(p: DecoderLayer, tgt, memory, query_pos, pos, cfg: DecoderConfig):
-    """Pre-norm, self-attention-first layer."""
-    eps = cfg.ln_eps
+def _decoder_layer(p: DecoderLayer, tgt, memory, query_pos, pos, cfg: DecoderConfig, generator=None):
+    """Pre-norm, self-attention-first layer; dropout where ``generator``."""
+    eps, rate = cfg.ln_eps, cfg.dropout
+    attn_kw = {"generator": generator, "dropout_rate": rate}
     t2 = layer_norm(p.norm1, tgt, eps)
     qk = t2 + query_pos
-    tgt = tgt + multi_head_attention(p.self_attn, qk, qk, t2, cfg.nhead)
+    tgt = tgt + dropout(generator, multi_head_attention(p.self_attn, qk, qk, t2, cfg.nhead, **attn_kw), rate)
     t2 = layer_norm(p.norm2, tgt, eps)
-    tgt = tgt + multi_head_attention(p.cross_attn, t2 + query_pos, memory + pos, memory, cfg.nhead)
+    ca = multi_head_attention(p.cross_attn, t2 + query_pos, memory + pos, memory, cfg.nhead, **attn_kw)
+    tgt = tgt + dropout(generator, ca, rate)
     t2 = layer_norm(p.norm3, tgt, eps)
-    return tgt + linear(p.linear2, torch.relu(linear(p.linear1, t2)))
+    hidden = dropout(generator, torch.relu(linear(p.linear1, t2)), rate)
+    return tgt + dropout(generator, linear(p.linear2, hidden), rate)
 
 
 @dataclass
@@ -165,12 +176,16 @@ class DecoderOutput:
     hs: torch.Tensor  # (L, B, Q, D) normed intermediate states
 
 
-def decoder_forward(params: ObjDecoder, cfg: DecoderConfig, features) -> DecoderOutput:
+def decoder_forward(params: ObjDecoder, cfg: DecoderConfig, features, *, generator=None,
+                    deterministic: bool = True) -> DecoderOutput:
     """Run the object decoder.
 
     Args:
         features: (B, T, N, feature_dim) backbone patch grid (CLS removed),
             T-major token order.
+        generator, deterministic: train mode (dropout at ``cfg.dropout``,
+            drawn from ``generator``) where ``deterministic`` is False and a
+            generator is given; otherwise eval mode.
     Returns:
         DecoderOutput. When ``pred_traj`` and T == num_frames, box tensors
         are per frame: B' = B*T; otherwise B' = B and Q' = Q.
@@ -189,9 +204,10 @@ def decoder_forward(params: ObjDecoder, cfg: DecoderConfig, features) -> Decoder
     query_pos = params.query_embed.to(mem.dtype).expand(b, q, d)
     tgt = torch.zeros((b, q, d), dtype=mem.dtype, device=mem.device)
 
+    gen = None if deterministic else generator
     hs = []
     for layer in params.layers:
-        tgt = _decoder_layer(layer, tgt, memory, query_pos, pos, cfg)
+        tgt = _decoder_layer(layer, tgt, memory, query_pos, pos, cfg, gen)
         hs.append(layer_norm(params.decoder_norm, tgt, cfg.ln_eps))
     hs = torch.stack(hs)  # (L, B, Q, D)
     num_layers = hs.shape[0]

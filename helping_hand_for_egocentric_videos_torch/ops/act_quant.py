@@ -17,8 +17,11 @@ The scale rule is ``quant.int8_linear``'s (``quantize_rows_ref``):
 
 Beside each wrapper is its plain PyTorch version (``*_ref``). A CPU tensor
 runs the plain version; a CUDA tensor runs the kernel in
-``csrc/act_quant.cu`` or the call raises. Launches are counted in the
-integer attribute ``launches`` of each wrapper.
+``csrc/act_quant.cu`` or the call raises. The kernels have no backward:
+on a CUDA tensor a wrapper raises where grad mode is on and the
+activation requires grad (the LayerNorm's parameters are read as
+constants on both routes). Launches are counted in the integer attribute
+``launches`` of each wrapper.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ __all__ = [
     "layer_norm_int8_ref",
     "quick_gelu_int8",
     "quick_gelu_int8_ref",
+    "check_no_grad",
 ]
 
 MAX_WIDTH = 4096  # the kernels hold a row in registers: 16 values a thread
@@ -62,6 +66,17 @@ def quick_gelu_int8_ref(x):
     """Plain version of K5: QuickGELU in f32, then ``quantize_rows_ref``."""
     xf = x.float()
     return quantize_rows_ref(xf * torch.sigmoid(1.702 * xf))
+
+
+def check_no_grad(name: str, *tensors):
+    """Raise where grad mode is on and one of ``tensors`` requires grad: a
+    kernel launched through ctypes has no backward, and its output would
+    leave the autograd graph without a word."""
+    if torch.is_grad_enabled() and any(z.requires_grad for z in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward, and an input requires grad; "
+            "call it under torch.no_grad() (the backbone it serves is frozen)"
+        )
 
 
 def _check(x, name: str):
@@ -109,6 +124,7 @@ def layer_norm_int8(p, x, eps: float = 1e-6):
         return layer_norm_int8_ref(p, x, eps)
     if x.device.type != "cuda":
         raise ValueError(f"no layer_norm_int8 kernel for device {x.device}")
+    check_no_grad("layer_norm_int8", x)
     _check(x, "layer_norm_int8")
     d = x.shape[-1]
     g, b = (z.detach().float().contiguous() for z in (p.weight, p.bias))
@@ -133,6 +149,7 @@ def quick_gelu_int8(x):
         return quick_gelu_int8_ref(x)
     if x.device.type != "cuda":
         raise ValueError(f"no quick_gelu_int8 kernel for device {x.device}")
+    check_no_grad("quick_gelu_int8", x)
     _check(x, "quick_gelu_int8")
     d = x.shape[-1]
     codes, scales = _outputs(x)

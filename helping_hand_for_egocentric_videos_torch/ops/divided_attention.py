@@ -25,16 +25,25 @@ Three things live here:
   ``launches_time_headgrid``; its plain version is
   ``time_attention_headgrid_ref``.
 
-The JAX package picks its time-attention kernel, and whether the int8
-route is fused, from the TPU's scoped-VMEM budget (``_temporal_block``,
-``_scoped_vmem_ask``, ``_VMEM_LIMIT``, ``needs_head_grid``, copied here
-with their numbers). The port keeps those thresholds as they are: they
-choose the JAX package's *route*, and with it where the int8 path rounds,
-so each backend rounds where its JAX counterpart does. They say nothing
+The kernels have no backward (nor have the JAX package's Pallas kernels:
+its backbone is frozen), so on a CUDA tensor the wrapper raises where
+grad mode is on and an input requires grad, rather than cut the graph
+silently; the plain version on a CPU tensor is differentiable as it is.
+
+Time attention's route on long clips is the port's own choice. The JAX
+package's ``divided_patch_attention`` takes ``head_grid`` but never reads
+it, and nothing there calls ``needs_head_grid`` or
+``_time_attention_headgrid``: its ``_block`` sends time attention at
+T = 128 (where ``_kernel_friendly`` fails it) to XLA's plain
+``_var_attention``. The port sends the same shapes to K6 instead, which
+computes the same function; it keeps the JAX package's TPU thresholds
+(``_temporal_block``, ``_scoped_vmem_ask``, ``_VMEM_LIMIT``,
+``needs_head_grid``, copied with their numbers) to draw that line where
+JAX leaves its kernel, so the int8 path rounds where its JAX counterpart
+does (unfused time attention at T = 128). The thresholds say nothing
 about the card's memory: on an H100 K2 and K6 each take every T up to
-their limits, which of them is faster at which T is measured in PERF.md
-(section 5, ``tools/torch_longclip_bench.py``), and ``needs_head_grid``
-is kept only to mirror the JAX package's route.
+their limits; which of them is faster at which T is measured in PERF.md
+(section 5, ``tools/torch_longclip_bench.py``).
 """
 
 from __future__ import annotations
@@ -44,7 +53,7 @@ import ctypes
 import torch
 
 from ._build import library
-from .act_quant import MAX_WIDTH, quantize_rows_ref
+from .act_quant import MAX_WIDTH, check_no_grad, quantize_rows_ref
 
 __all__ = [
     "divided_patch_attention",
@@ -81,8 +90,9 @@ def _temporal_block(t: int, n: int) -> int:
 
 def needs_head_grid(t: int, n: int, heads: int) -> bool:
     """True where the JAX package's single-tile time kernel would overrun
-    the TPU's VMEM budget and time attention takes the head-grid kernel
-    (K6): T = 128 at TimeSformer-L widths (N = 256, H = 16)."""
+    the TPU's VMEM budget, so that JAX's ``_block`` leaves its kernel for
+    XLA's ``_var_attention``: T = 128 at TimeSformer-L widths (N = 256,
+    H = 16). There the port takes its head-grid kernel (K6)."""
     r = t * _temporal_block(t, n)
     return _scoped_vmem_ask(r, heads) + 16 * 1024 * 1024 > _VMEM_LIMIT
 
@@ -264,12 +274,14 @@ def divided_patch_attention(qkv, cls_k, cls_v, cls_q, *, mode: str, heads: int,
     """Patch-token divided attention on packed qkv, with the CLS partials.
 
     Same contract as ``divided_patch_attention_ref``. A CUDA tensor runs
-    the CUDA kernel (and raises what it does not take); a CPU tensor runs
-    the plain version.
+    the CUDA kernel (and raises what it does not take, and where grad mode
+    is on and an input requires grad: the kernels have no backward); a
+    CPU tensor runs the plain version.
 
-    ``head_grid`` (time mode only) selects K6, as in the JAX package:
-    ``None`` takes it where ``needs_head_grid(T, N, heads)``, ``True``
-    forces it. K6 returns its partials per tube and has no ``quant_out``.
+    ``head_grid`` (time mode only) selects K6, the port's route for the
+    long clips on which the JAX package leaves its kernel for XLA: ``None``
+    takes it where ``needs_head_grid(T, N, heads)``, ``True`` forces it.
+    K6 returns its partials per tube and has no ``quant_out``.
     """
     if mode not in _MODES:
         raise ValueError(f"mode must be one of {_MODES}, got {mode!r}")
@@ -289,6 +301,7 @@ def divided_patch_attention(qkv, cls_k, cls_v, cls_q, *, mode: str, heads: int,
                                            quant_out=quant_out)
     if qkv.device.type != "cuda":
         raise ValueError(f"no divided-attention kernel for device {qkv.device}")
+    check_no_grad("divided_patch_attention", qkv, cls_k, cls_v, cls_q)
     if head_grid:
         res = _launch_headgrid(qkv, cls_k, cls_v, cls_q, heads)
         attr = "launches_time_headgrid"

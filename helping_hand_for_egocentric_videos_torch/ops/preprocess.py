@@ -46,10 +46,14 @@ def _resize(x, size: tuple[int, int]):
     return y.permute(0, 2, 3, 1).reshape(*lead, *size, c)
 
 
+def _channels(values, like):
+    """A (C,) tensor of ``values`` made on ``like``'s device by fills, not
+    by a copy from the host (which would wait for the device)."""
+    return torch.stack([torch.full((), v, dtype=like.dtype, device=like.device) for v in values])
+
+
 def _norm(x, mean, std):
-    mean = torch.tensor(mean, dtype=x.dtype, device=x.device)
-    std = torch.tensor(std, dtype=x.dtype, device=x.device)
-    return (x - mean) / std
+    return (x - _channels(mean, x)) / _channels(std, x)
 
 
 def resize_normalize(video_u8, res: int = 224, mean=LAVILA_MEAN, std=LAVILA_STD, dtype=torch.float32):

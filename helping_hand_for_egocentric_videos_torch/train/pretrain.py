@@ -1,10 +1,10 @@
-"""Model construction for the eval and serving entry points.
+"""Model and train-step construction from an ``ExperimentConfig``.
 
-Counterpart of ``build_models`` in
-``helping_hand_for_egocentric_videos_tpu/train/pretrain.py`` (only that
-function: the pretraining loop comes with the train slice). The backbone
-and the decoder come from the reference's checkpoints when the config
-names them, else from seeded random initialisation.
+Counterpart of ``build_models`` and ``build_train_config`` in
+``helping_hand_for_egocentric_videos_tpu/train/pretrain.py`` (the
+pretraining loop itself is not ported yet). The backbone and the decoder
+come from the reference's checkpoints when the config names them, else
+from seeded random initialisation.
 """
 
 from __future__ import annotations
@@ -21,8 +21,9 @@ from ..models import (
     timesformer_tiny_config,
 )
 from ..models.weights import convert_decoder_checkpoint, convert_lavila_checkpoint, load_torch_state_dict
+from .step import TrainConfig
 
-__all__ = ["build_models"]
+__all__ = ["build_models", "build_train_config"]
 
 
 def build_models(cfg: ExperimentConfig, rng_seed: int = 0):
@@ -58,3 +59,20 @@ def build_models(cfg: ExperimentConfig, rng_seed: int = 0):
     else:
         decoder = ObjDecoder(dec_cfg, generator=torch.Generator().manual_seed(rng_seed + 1))
     return lavila_cfg, backbone, dec_cfg, decoder
+
+
+def build_train_config(cfg: ExperimentConfig) -> TrainConfig:
+    """ExperimentConfig -> the train step's TrainConfig. ``resize`` (the
+    box targets' pixel normaliser) tracks ``data.input_res``: the dataset
+    scales box targets to input_res coordinates."""
+    return TrainConfig(
+        lr=cfg.optim.lr,
+        wd=cfg.optim.wd,
+        num_queries=cfg.model.num_queries,
+        input_res=cfg.data.input_res,
+        resize=float(cfg.data.input_res),
+        backbone_dtype=torch.bfloat16 if cfg.parallel.backbone_dtype == "bfloat16" else torch.float32,
+        augment=cfg.data.augment,
+        randcrop_scale=tuple(cfg.data.randcrop_scale),
+        color_jitter=tuple(cfg.data.color_jitter),
+    )

@@ -1,9 +1,8 @@
 """Analytic model-FLOPs counters (2 FLOPs per MAC) for roofline/mfu math.
 
-A copy of the forward counters of
+A copy of the counters of
 ``helping_hand_for_egocentric_videos_tpu/utils/flops.py`` (the port imports
-nothing of the JAX package; the train-step counter comes with the train
-slice). The reference publishes no
+nothing of the JAX package). The reference publishes no
 FLOPs or throughput numbers, so an mfu figure needs a model-fixed
 numerator. These counters are pure dimension arithmetic on the config
 dataclasses (~3.43e12 for the TimeSformer-L 16-frame eval forward).
@@ -75,4 +74,16 @@ def eval_fwd_flops_per_clip(lavila_cfg, dec_cfg, frames: int | None = None) -> f
         vision_fwd_flops(lavila_cfg.visual, frames)
         + text_fwd_flops(lavila_cfg.text)
         + decoder_fwd_flops(dec_cfg)
+    )
+
+
+def train_step_flops_per_clip(lavila_cfg, dec_cfg, rephrase_factor: int = 5) -> float:
+    """Pretrain step FLOPs per video clip: the frozen backbone forward
+    only (it runs under ``no_grad``, so it has no backward), the text tower
+    once per caption (``rephrase_factor`` a clip), and the trained decoder
+    and projections forward and backward, about 3x its forward."""
+    return (
+        vision_fwd_flops(lavila_cfg.visual)
+        + rephrase_factor * text_fwd_flops(lavila_cfg.text)
+        + 3.0 * decoder_fwd_flops(dec_cfg)
     )

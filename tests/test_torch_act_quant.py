@@ -175,3 +175,19 @@ def test_cuda_layer_norm_int8_edge_rows(cuda_device, d, dtype):
     flat = torch.randn(16 * d + 1, generator=gen, device=cuda_device).to(dt)
     off = flat[1:].view(16, d)  # one element past the allocation's start
     _assert_kernel_close(aq.layer_norm_int8(ln, off, 1e-6), aq.layer_norm_int8_ref(ln, off, 1e-6))
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_refuse_activations_that_require_grad(cuda_device):
+    """No backward: an activation that requires grad raises with grad mode
+    on; the LayerNorm's own parameters are read as constants, as the plain
+    version reads them."""
+    x = torch.randn(8, 256, device=cuda_device).requires_grad_()
+    ln = nn.LayerNorm(256, device=cuda_device)
+    with pytest.raises(RuntimeError, match="no backward"):
+        aq.layer_norm_int8(ln, x, 1e-6)
+    with pytest.raises(RuntimeError, match="no backward"):
+        aq.quick_gelu_int8(x)
+    aq.layer_norm_int8(ln, x.detach(), 1e-6)
+    with torch.no_grad():
+        aq.quick_gelu_int8(x)

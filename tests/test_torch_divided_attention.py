@@ -523,3 +523,31 @@ def test_cuda_quant_out_kernel_tilings_match_plain(cuda_device, mode, shape, dty
                         (want[0].cpu().numpy(), want[1].cpu().numpy()), max_changed=1e-3)
     for a, b_ in zip(parts, parts0):
         torch.testing.assert_close(a, b_, rtol=0, atol=0)
+
+
+def test_plain_route_on_cpu_is_differentiable():
+    """On the CPU the wrapper runs the plain version, so gradients flow
+    (the CUDA kernels have none and refuse inputs that require grad)."""
+    _, _, _, qkv = _qkv_inputs(4)
+    qkv_p, cls_q, cls_k, cls_v = (torch.from_numpy(z).requires_grad_() for z in _split(qkv, 4))
+    out, parts = da.divided_patch_attention(qkv_p, cls_k, cls_v, cls_q, mode="space", heads=HEADS)
+    (out.sum() + da.merge_cls_partials(*parts, cls_q, cls_k, cls_v, HEADS).sum()).backward()
+    assert all(z.grad is not None and torch.isfinite(z.grad).all() for z in (qkv_p, cls_q, cls_k, cls_v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_grid", [False, True])
+def test_cuda_kernel_refuses_inputs_that_require_grad(cuda_device, head_grid):
+    """The kernels have no backward: with grad mode on, an input that
+    requires grad raises instead of leaving the graph; under no_grad the
+    same call runs."""
+    b, t, n, d = 1, 4, 64, 2 * 64
+    qkv = torch.randn(b, t, n, 3 * d, device=cuda_device)
+    ck, cv, cq = (torch.randn(b, d, device=cuda_device) for _ in range(3))
+    kw = dict(mode="time", heads=2, head_grid=head_grid)
+    with pytest.raises(RuntimeError, match="no backward"):
+        da.divided_patch_attention(qkv.requires_grad_(), ck, cv, cq, **kw)
+    with pytest.raises(RuntimeError, match="no backward"):
+        da.divided_patch_attention(qkv.detach(), ck.requires_grad_(), cv, cq, **kw)
+    with torch.no_grad():
+        da.divided_patch_attention(qkv, ck, cv, cq, **kw)

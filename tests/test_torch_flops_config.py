@@ -46,3 +46,28 @@ def test_flop_counters_equal_jax(backbone, frames):
     assert tflops.vision_fwd_flops(tl.visual, frames) == jflops.vision_fwd_flops(jl.visual, frames)
     assert tflops.text_fwd_flops(tl.text) == jflops.text_fwd_flops(jl.text)
     assert tflops.decoder_fwd_flops(td) == jflops.decoder_fwd_flops(jd)
+    assert tflops.train_step_flops_per_clip(tl, td) == jflops.train_step_flops_per_clip(jl, jd)
+
+
+@pytest.mark.parametrize("overrides", [{}, {"data.input_res": 160, "parallel.backbone_dtype": "float32",
+                                            "optim.lr": 1e-4, "model.num_queries": 6}],
+                         ids=["defaults", "overrides"])
+def test_build_train_config_equals_jax(overrides):
+    """``build_train_config`` reads the same fields as JAX's into the same
+    TrainConfig (the backbone type as a torch dtype)."""
+    import jax.numpy as jnp
+    import torch
+
+    from helping_hand_for_egocentric_videos_tpu.train.pretrain import build_train_config as jbuild
+    from helping_hand_for_egocentric_videos_torch.train.pretrain import build_train_config as tbuild
+
+    got_cfg = tcfg.ExperimentConfig()
+    for key, val in overrides.items():
+        section, name = key.split(".")
+        setattr(getattr(got_cfg, section), name, val)
+    want = dataclasses.asdict(jbuild(jcfg.apply_overrides(jcfg.ExperimentConfig(),
+                                                          [f"{k}={v}" for k, v in overrides.items()])))
+    got = dataclasses.asdict(tbuild(got_cfg))
+    dtypes = {jnp.bfloat16: torch.bfloat16, jnp.float32: torch.float32}
+    assert got.pop("backbone_dtype") == dtypes[want.pop("backbone_dtype")]
+    assert got == want

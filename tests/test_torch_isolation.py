@@ -91,7 +91,7 @@ def test_default_device_raises_without_cuda(no_cuda):
         ObjDecoder,
         timesformer_tiny_config,
     )
-    from helping_hand_for_egocentric_videos_torch.train import EvalModel
+    from helping_hand_for_egocentric_videos_torch.train import EvalModel, TrainConfig, TrainState
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device()
@@ -100,6 +100,8 @@ def test_default_device_raises_without_cuda(no_cuda):
                          feature_dim=128, text_width=64, num_frames=4, patches_per_frame=49)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         EvalModel(Lavila(lcfg), lcfg, ObjDecoder(dcfg), dcfg, ClipTokenizer())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TrainState.create(ObjDecoder(dcfg), TrainConfig())
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["in-repo", "alone"])

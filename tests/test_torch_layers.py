@@ -86,3 +86,50 @@ def test_linear_init_is_seeded_and_bounded():
     assert a.weight.shape == (8, 64) and a.weight.abs().max() <= 64**-0.5
     c = tl.linear_init(64, 8, std=0.02, bias=False, generator=torch.Generator().manual_seed(1))
     assert c.bias is None and 0.01 < c.weight.std() < 0.03
+
+
+def test_dropout_without_generator_is_the_identity(rng):
+    x = torch.from_numpy(rng.normal(size=(4, 9)).astype(np.float32))
+    assert tl.dropout(None, x, 0.1) is x
+    assert tl.dropout(torch.Generator().manual_seed(0), x, 0.1, deterministic=True) is x
+    assert tl.dropout(torch.Generator().manual_seed(0), x, 0.0) is x
+
+
+def test_dropout_keeps_the_mean():
+    """Over 10^6 draws at rate 0.1: the kept share within 0.002 of 0.9 (30
+    standard deviations of a binomial share), the kept values scaled by
+    exactly 1 / 0.9, the mean within 0.005 of 1; the same seed draws the
+    same mask."""
+    x = torch.ones(1000, 1000)
+    y = tl.dropout(torch.Generator().manual_seed(3), x, 0.1)
+    kept = y != 0
+    assert abs(kept.float().mean().item() - 0.9) < 2e-3
+    torch.testing.assert_close(y[kept], torch.full_like(y[kept], 1 / 0.9), rtol=0, atol=0)
+    assert abs(y.mean().item() - 1.0) < 5e-3
+    torch.testing.assert_close(tl.dropout(torch.Generator().manual_seed(3), x, 0.1), y, rtol=0, atol=0)
+
+
+def test_attention_dropout_mean_and_pre_dropout_weights(rng):
+    """Attention-weight dropout: no generator gives eval mode exactly; with
+    one, ``return_probs`` gives the weights before dropout (the JAX
+    package's ``return_probs``), and the output averaged over 4000 draws
+    is within 0.02 of the eval output (unbiased, inverted scaling)."""
+    dim, heads, nq, nk, draws = 16, 2, 3, 6, 4000
+    p = _np(jl.mha_init(jax.random.PRNGKey(5), dim))
+    mha = load_jax_params(tl.MultiheadAttention(dim), p)
+    q_in, k_in = (rng.normal(size=(1, n, dim)).astype(np.float32) for n in (nq, nk))
+    q, k = torch.from_numpy(q_in), torch.from_numpy(k_in)
+    want_out, want_probs = jl.multi_head_attention(p, jnp.asarray(q_in), jnp.asarray(k_in), jnp.asarray(k_in), heads,
+                                                   return_probs=True)
+    ev_out, ev_probs = tl.multi_head_attention(mha, q, k, k, heads, return_probs=True)
+    np.testing.assert_allclose(ev_out.numpy(), np.asarray(want_out), atol=ATOL)
+    np.testing.assert_allclose(ev_probs.numpy(), np.asarray(want_probs), atol=ATOL)
+    off = tl.multi_head_attention(mha, q, k, k, heads, dropout_rate=0.5)
+    torch.testing.assert_close(off, ev_out, rtol=0, atol=0)
+
+    qs, ks = q.expand(draws, nq, dim), k.expand(draws, nk, dim)
+    out, probs = tl.multi_head_attention(mha, qs, ks, ks, heads, return_probs=True,
+                                         generator=torch.Generator().manual_seed(1), dropout_rate=0.5)
+    torch.testing.assert_close(probs, ev_probs.expand_as(probs), rtol=0, atol=1e-6)
+    assert (out - ev_out).abs().max() > 0.1  # single draws do differ
+    assert (out.mean(0) - ev_out[0]).abs().max() < 0.02

@@ -68,3 +68,39 @@ def test_port_init_matches_jax_layout():
         want = {k: tuple(v.shape) for k, v in jax_tree_to_state_dict(jax.tree.map(np.asarray, tree)).items()}
         dec = tod.ObjDecoder(tod.DecoderConfig(**kw), generator=torch.Generator().manual_seed(0))
         assert {k: tuple(v.shape) for k, v in dec.state_dict().items()} == want
+
+
+def test_train_mode_without_generator_is_eval_mode(rng):
+    kw = dict(SMALL, num_queries=5)
+    params = jax.tree.map(np.asarray, jod.init_decoder_params(jax.random.PRNGKey(9), jod.DecoderConfig(**kw)))
+    cfg = tod.DecoderConfig(**kw)
+    dec = load_jax_params(tod.ObjDecoder(cfg), params)
+    feats = torch.from_numpy(rng.normal(size=(2, 3, 4, 48)).astype(np.float32))
+    with torch.inference_mode():
+        ev = tod.decoder_forward(dec, cfg, feats)
+        train_no_gen = tod.decoder_forward(dec, cfg, feats, deterministic=False)
+        det_with_gen = tod.decoder_forward(dec, cfg, feats, generator=torch.Generator().manual_seed(0))
+    for out in (train_no_gen, det_with_gen):
+        for k in ("pred_boxes", "hs", "pred_logits"):
+            torch.testing.assert_close(getattr(out, k), getattr(ev, k), rtol=0, atol=0)
+
+
+def test_train_mode_dropout_is_seeded_and_unbiased(rng):
+    """Dropout draws from the generator: a seed reproduces the output,
+    another seed differs (the mean of each draw is held in
+    ``test_torch_layers.py``; the LayerNorms and ReLUs here do not keep it)."""
+    kw = dict(SMALL, num_queries=5, num_layers=1)
+    params = jax.tree.map(np.asarray, jod.init_decoder_params(jax.random.PRNGKey(10), jod.DecoderConfig(**kw)))
+    cfg = tod.DecoderConfig(**kw)
+    assert cfg.dropout == jod.DecoderConfig().dropout == 0.1
+    dec = load_jax_params(tod.ObjDecoder(cfg), params)
+    feats = torch.from_numpy(rng.normal(size=(2, 3, 4, 48)).astype(np.float32))
+
+    def run(seed):
+        with torch.inference_mode():
+            return tod.decoder_forward(dec, cfg, feats, generator=torch.Generator().manual_seed(seed),
+                                       deterministic=False).hs[-1]
+
+    a, b, a2 = run(1), run(2), run(1)
+    torch.testing.assert_close(a, a2, rtol=0, atol=0)
+    assert (a - b).abs().max() > 0.1
