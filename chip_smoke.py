@@ -109,8 +109,38 @@ failed check raises and the script exits non-zero:
    ``mfu_bf16``; and K1 and K2 alone at the train shape (B=16, T=4) as in
    phase 3.
 
+13. train-loop: ``cli.train.main``, the pretraining entry point, at the
+   full width of phase 12 from seeded random weights, on a synthetic
+   EgoClip layout the script writes under ``build/`` (two videos as
+   chunked ``videos_256_chunked/<uid>/0.mp4.npy`` of 256 x 456 frames,
+   192 narrations with hand-object detections, 40 EgoMCQ items, the
+   582-noun taxonomy and a seeded (582, 768) noun dictionary, strict
+   loading): ``--batch_size 16`` (32 clips a step with the scene-aware
+   negatives), ``--augment`` with colour jitter, one epoch of 12 steps,
+   online EgoMCQ and checkpoints every 6 steps (2 kept), metrics flushed
+   every 6 steps, and ``--sync_debug error``: the steps that neither
+   flush, evaluate nor save raise on any host sync. Then the same command
+   resumed to step 16. Checks: the step counters, the logged steps after
+   resume, every logged metric finite, the checkpoint directories (keep-k)
+   and ``best/`` (the first eval that reached the highest Inter-video
+   accuracy, if above 0), the backbone and ``class_embed`` / ``vid_proj``
+   bit-identical to what the run built, and the launches: K1 and K2 24
+   times a train step and an eval forward, K3-K6 never. It prints the
+   steady window's steps/s, clips/s, step time, the share of it spent
+   waiting for data, and peak memory.
+14. train-loop-int8: the loop for 3 steps in bf16 (augmentation off), then
+   with ``--int8_backbone``: K3 24 + 24, K4 72 and K5 24 launches a train
+   step and an eval forward (the fused int8 route at T=4), K1/K2 never;
+   the first step's loss within 5e-2 relative of the bf16 loop's.
+15. train-loop-dist: the loop for 3 steps as one ``torchrun``-style rank
+   (RANK=0, WORLD_SIZE=1, LOCAL_RANK=0, MASTER_ADDR/PORT set by the
+   script), so through ``nccl`` and the all-gather / all-reduce code: its
+   losses within 1e-4 relative of the bf16 loop's of phase 14, the group
+   destroyed at the end. Before phase 13, K1, K2 and K3 alone at the
+   loop's shape (B=32, T=4), as in phase 12.
+
 Then one ``{"kernels": [...]}`` line, each kernel's launches summed over
-phases 5, 6, 10 and 12, and, last, ``{"ok": true, "device":
+phases 5, 6, 10 and 12-15, and, last, ``{"ok": true, "device":
 {...}}``. Time attention is zero-initialised in the model (its qkv feeds
 the kernel zeros), so the smoke gives its weights seeded N(0, 0.02) values.
 """
@@ -119,7 +149,9 @@ from __future__ import annotations
 
 import io
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1456,6 +1488,378 @@ def phase_train(card, peaks, device="cuda", backbone_name="timesformer_large", b
     return launches, _time_train_shape(device, peaks), {"vs_plain": vs_plain, "timing": timing}
 
 
+# ---------------------------------------------------------------- the loop
+LOOP_ITEMS, LOOP_T = 16, 4  # --batch_size 16 items a step; with their negatives 32 clips
+LOOP_STEPS, LOOP_EVERY, LOOP_RESUME_TO, LOOP_REF_STEPS, LOOP_PROFILE_STEP = 12, 6, 16, 3, 14
+LOOP_MCQ, LOOP_EVAL_ITEMS_PER_FORWARD = 40, 4  # EgoMCQ items; run_egomcq's items a forward
+LOOP_NOUNS = ("onion", "board", "knife", "fridge", "cup", "sink", "drawer", "plate")
+LOOP_CAPTIONS = ("#C C cuts the onion on the board", "#C C opens the fridge", "#C C washes the knife in the sink",
+                 "#C C picks up a cup from the drawer", "#C C puts the plate on the board")
+LOOP_FPS, LOOP_FRAMES, LOOP_HW = 30, 90, (256, 456)  # chunks at the reference's 256-pixel short side
+
+
+def write_egoclip_fixture(root: Path, rows: int = LOOP_ITEMS * LOOP_STEPS, mcq: int = LOOP_MCQ,
+                          noun_width: int = 768) -> tuple[str, str]:
+    """A synthetic EgoClip layout under ``root`` -> (meta_dir, data_dir):
+    two videos of seeded uint8 frames as chunked
+    ``videos_256_chunked/<uid>/0.mp4.npy`` (90 frames of 256 x 456),
+    ``egoclip.csv`` with ``rows`` narrations whose nouns are in the
+    taxonomy, hand-object detections for every clip (so the box losses
+    see boxes), ``egomcq.json`` with ``mcq`` items of 5 choices of both
+    types, the 582-noun taxonomy and a seeded (582, ``noun_width``)
+    ``noun_dict_lavila_embeds.pth``, and no rephrased captions (so the
+    four extra caption rows are padding)."""
+    import pickle
+
+    import torch
+
+    rng = np.random.default_rng(SEED + 11)
+    meta, data = root / "meta", root / "data"
+    meta.mkdir(parents=True, exist_ok=True)
+    uids = ("vid_000", "vid_001")
+    starts = [round(0.05 * (i // 2) % 2.4, 2) for i in range(rows)]
+    for uid in uids:
+        vdir = data / "videos_256_chunked" / uid
+        vdir.mkdir(parents=True, exist_ok=True)
+        np.save(vdir / "0.mp4.npy", rng.integers(0, 256, size=(LOOP_FRAMES, *LOOP_HW, 3), dtype=np.uint8))
+        hdir = data / "hand_object_clip_per_video_4f_lavila_narrator_640" / uid
+        hdir.mkdir(parents=True, exist_ok=True)
+        info = {}
+        for start in sorted(set(starts)):
+            per_clip = {}
+            for f in range(4):
+                xy = rng.random((3, 2)) * [300, 150]
+                wh = 30 + rng.random((3, 2)) * 100
+                dets = np.concatenate([xy, xy + wh, rng.random((3, 1))], 1)
+                per_clip[f] = {"hand_dets": dets[:2], "obj_dets": dets[2:]}
+            per_clip["info"] = {"height": LOOP_HW[0], "width": LOOP_HW[1]}
+            info[round(start, 3)] = per_clip
+        with open(hdir / "0.handobj.pkl", "wb") as fh:
+            pickle.dump(info, fh)
+    lines = ["video_uid\tclip_start\tclip_end\tclip_text\ttag_noun\ttag_verb\tnarration_time"]
+    for i, start in enumerate(starts):
+        cap = LOOP_CAPTIONS[i % len(LOOP_CAPTIONS)]
+        tags = [1 + LOOP_NOUNS.index(n) for n in LOOP_NOUNS if n in cap]
+        lines.append(f"{uids[i % 2]}\t{start}\t{start + 0.5}\t{cap}\t{tags}\t[{i % 7}]\t{start}")
+    (meta / "egoclip.csv").write_text("\n".join(lines))
+
+    def choice(k):
+        start = round(0.1 + 0.23 * k % 2.4, 2)
+        cap = LOOP_CAPTIONS[k % len(LOOP_CAPTIONS)]
+        return {"video_uid": uids[k % 2], "clip_start": start, "clip_end": start + 0.5, "clip_text": cap,
+                "tag_noun": "[1]", "tag_verb": "[0]", "narration_time": start}
+
+    items = {str(q): {"query": choice(q), "choices": {str(i): choice(q + i) for i in range(5)}, "answer": q % 5,
+                      "types": 1 + q % 2} for q in range(mcq)}
+    (meta / "egomcq.json").write_text(json.dumps(items))
+    names = ["pad", *LOOP_NOUNS] + [f"noun{i}" for i in range(1 + len(LOOP_NOUNS), TRAIN_NOUNS)]
+    groups = ["group"] + [json.dumps([n]).replace('"', "'") for n in names]
+    (meta / "narration_noun_taxonomy.csv").write_text("\n".join(f'"{g}"' for g in groups))
+    gen = torch.Generator().manual_seed(SEED + 12)
+    torch.save({n: torch.randn(noun_width, generator=gen) for n in names}, meta / "noun_dict_lavila_embeds.pth")
+    return str(meta), str(data)
+
+
+def _loop_argv(meta, data, out, name, *extra):
+    return ["--meta_dir", meta, "--data_dir", data, "--output_dir", str(out), "--name", name,
+            "--batch_size", str(LOOP_ITEMS), "--num_frames", str(LOOP_T), "--lr", str(TRAIN_LR), "--epochs", "1",
+            "--eval_freq", str(LOOP_EVERY), "--runtime_save_iter", str(LOOP_EVERY), *extra]
+
+
+def _loop_sets(*extra):
+    return ["--set", "data.loading=strict", f"optim.log_flush_iter={LOOP_EVERY}", "optim.keep_checkpoints=2", *extra]
+
+
+def _jsonl(path) -> list[dict]:
+    return [json.loads(line) for line in open(path)]
+
+
+def _run_loop(argv) -> dict:
+    """``cli.train.main(argv)`` with the launch counts set to 0 just before
+    and read just after; the models the run builds are snapshotted as
+    built. -> the run's state, logs, launches, peak memory, and whether the
+    backbone, ``class_embed`` and ``vid_proj`` are as built and every
+    logged metric finite."""
+    import gc
+
+    import torch
+
+    from helping_hand_for_egocentric_videos_torch.cli import train as cli_train
+    from helping_hand_for_egocentric_videos_torch.train import pretrain as tpre
+
+    built, real = {}, tpre.build_models
+
+    def snapshot_build(cfg, seed=0):
+        models = real(cfg, seed)
+        built["models"] = models
+        built["backbone"] = {k: v.clone() for k, v in models[1].state_dict().items()}
+        built["frozen"] = {k: v.clone() for k, v in models[3].state_dict().items()
+                           if k.split(".")[0] in ("class_embed", "vid_proj")}
+        return models
+
+    args = cli_train.parse_args(argv)
+    exp = Path(args.output_dir) / args.name
+    tpre.build_models = snapshot_build
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        # ---- the main path: counts set to 0 just before, read just after
+        reset_counts()
+        state, best = cli_train.main(argv)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        # ----
+    finally:
+        tpre.build_models = real
+    seconds = time.perf_counter() - t0
+    train, val = _jsonl(exp / "train_metrics.jsonl"), _jsonl(exp / "val_metrics.jsonl")
+    backbone = built["models"][1]
+    res = {
+        "state": state, "best": best, "exp": exp, "train": train, "val": val, "launches": launches,
+        "seconds": seconds, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "backbone_unchanged": all(torch.equal(v.cpu(), backbone.state_dict()[k].cpu())
+                                  for k, v in built["backbone"].items()),
+        "frozen_unchanged": all(torch.equal(v.to(state.decoder.state_dict()[k].device), state.decoder.state_dict()[k])
+                                for k, v in built["frozen"].items()),
+        "finite": all(np.isfinite(v) for r in train + val for k, v in r.items() if k not in ("step", "time")),
+    }
+    del built, backbone
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _expect_launches(run, per_forward, steps, evals) -> dict:
+    """The launches a run must make: ``per_forward`` for each train step and
+    for each eval forward (``run_egomcq`` takes 4 items, 20 clips, a
+    forward)."""
+    eval_forwards = sum(-(-int(r["egomcq/n_items"]) // LOOP_EVAL_ITEMS_PER_FORWARD) for r in evals)
+    want = {k: v * (steps + eval_forwards) for k, v in per_forward.items()}
+    if run["launches"] != want:
+        raise AssertionError(f"{run['launches']} launches for {steps} steps and {eval_forwards} eval forwards, "
+                             f"want {per_forward} each")
+    return {"train_steps_counted": steps, "eval_forwards": eval_forwards}
+
+
+def _trace_busy(path) -> dict:
+    """A traced loop step's wall time (first to last event of the trace,
+    the step and the wait for the device), the device's busy time (the
+    kernels' and copies' durations) and its idle share, and the kernels
+    launched."""
+    events = [e for e in json.loads(Path(path).read_text())["traceEvents"] if e.get("ph") == "X"]
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    wall = (max(e["ts"] + e["dur"] for e in events) - min(e["ts"] for e in events)) / 1e3
+    busy = sum(e["dur"] for e in device) / 1e3
+    return {"wall_ms": wall, "device_busy_ms": busy, "idle_share": 1 - busy / wall,
+            "kernels": sum(e.get("cat") == "kernel" for e in device)}
+
+
+def _window_ms(train) -> list[float]:
+    """The training ms a step of each flush window (``loop/`` rows)."""
+    return [1e3 * r["loop/seconds"] / r["loop/steps"] for r in train if "loop/seconds" in r]
+
+
+def _losses(train) -> dict:
+    return {r["step"]: r["local/total_loss"] for r in train if "local/total_loss" in r}
+
+
+def phase_train_loop(card, root: Path):
+    """"train-loop": ``cli.train.main`` at full width (TimeSformer-L/14, 4
+    frames, 224 x 224, the 13-query decoder), 16 items a step (32 clips
+    with their negatives), augmentation on with colour jitter, one epoch
+    of 12 steps evaluating and saving every 6, the steps between flushes
+    under ``set_sync_debug_mode("error")``; then resumed from the last
+    checkpoint to step 16. -> launches of the main path."""
+    from types import SimpleNamespace
+
+    from helping_hand_for_egocentric_videos_torch.models import lavila
+
+    meta, data = write_egoclip_fixture(root / "egoclip")
+    out = root / "runs"
+    per_forward = launches_per_forward(SimpleNamespace(lavila_cfg=lavila.timesformer_large_config(LOOP_T),
+                                                       int8=False))
+    jitter = "data.color_jitter=0.3,0.3,0.05"
+    run = _run_loop(_loop_argv(meta, data, out, "loop", "--augment", "--sync_debug", "error",
+                               *_loop_sets(jitter)))
+    counts = _expect_launches(run, per_forward, LOOP_STEPS, run["val"])
+    exp = run["exp"]
+    ckpts = sorted(os.listdir(exp / "checkpoints"))
+    best = sorted(os.listdir(exp / "best")) if (exp / "best").exists() else []
+    # best/ holds the first eval that reached the highest Inter-video accuracy, if it beat 0
+    inter = [(r["egomcq/Inter-video"], -r["step"]) for r in run["val"]]
+    top = max(inter)
+    want_best = [f"step_{-top[1]:08d}"] if top[0] > 0 else []
+    windows = [r for r in run["train"] if "loop/steps_per_s" in r]
+    steady = windows[-1]  # steps 7-12: past the first step's set-up
+    timing = {"card": card, "items_per_step": LOOP_ITEMS, "clips_per_step": 2 * LOOP_ITEMS,
+              "steps_per_s": steady["loop/steps_per_s"], "clips_per_s": steady["loop/steps_per_s"] * 2 * LOOP_ITEMS,
+              "step_ms": 1e3 / steady["loop/steps_per_s"], "data_share": steady["loop/data_share"],
+              "data_ms_per_step": 1e3 * steady["loop/data_share"] / steady["loop/steps_per_s"],
+              "window_steps": steady["loop/steps"], "windows": windows, "peak_memory_gb": run["peak_memory_gb"],
+              "run_seconds": run["seconds"]}
+    res = {"steps": run["state"].step, "checkpoints": ckpts, "best": best, "best_expected": want_best,
+           "val": run["val"],
+           "launches": run["launches"], "launches_per_step": per_forward, **counts,
+           "finite": run["finite"], "backbone_unchanged": run["backbone_unchanged"],
+           "class_embed_vid_proj_unchanged": run["frozen_unchanged"], "sync_debug_mode": "error, steps 2-5 and 7-11",
+           "total_loss": _losses(run["train"])}
+    del run
+
+    # the resumed run also traces step 14 (utils/profiling.py) for the step's device busy share
+    resumed = _run_loop(_loop_argv(meta, data, out, "loop", "--augment", "--epochs", "2", "--max_steps",
+                                   str(LOOP_RESUME_TO), "--runtime_save_iter", "4",
+                                   *_loop_sets(jitter, f"optim.profile_step={LOOP_PROFILE_STEP}")))
+    timing["traced_step"] = _trace_busy(exp / "profile" / "trace.json")
+    more = LOOP_RESUME_TO - LOOP_STEPS
+    counts2 = _expect_launches(resumed, per_forward, more, [r for r in resumed["val"] if r["step"] > LOOP_STEPS])
+    ckpts2 = sorted(os.listdir(exp / "checkpoints"))
+    new_steps = sorted(s for s in _losses(resumed["train"]) if s > LOOP_STEPS)
+    res["resume"] = {"steps": resumed["state"].step, "logged_steps": new_steps, "checkpoints": ckpts2,
+                     "finite": resumed["finite"], "backbone_unchanged": resumed["backbone_unchanged"],
+                     "class_embed_vid_proj_unchanged": resumed["frozen_unchanged"], **counts2}
+    launches = {k: v + resumed["launches"][k] for k, v in res["launches"].items()}
+    del resumed
+    say("train-loop", **res)
+    say("train-loop-timing", **timing)
+    ok = (res["steps"] == LOOP_STEPS and ckpts == ["step_00000006", "step_00000012"] and best == want_best
+          and len(res["val"]) == 2 and res["finite"] and res["backbone_unchanged"]
+          and res["class_embed_vid_proj_unchanged"] and res["resume"]["steps"] == LOOP_RESUME_TO
+          and new_steps == list(range(LOOP_STEPS + 1, LOOP_RESUME_TO + 1))
+          and ckpts2 == ["step_00000012", "step_00000016"] and res["resume"]["finite"]
+          and res["resume"]["backbone_unchanged"] and res["resume"]["class_embed_vid_proj_unchanged"])
+    if not ok:
+        raise AssertionError("the training loop did not run, save, evaluate or resume as it must (train-loop line)")
+    return launches, (meta, data), timing
+
+
+def phase_train_loop_int8(card, fixture, root: Path):
+    """"train-loop-int8": the loop with ``--int8_backbone`` for 3 steps,
+    and the same run in bf16 (augmentation off, the same seed and batches)
+    as its reference: K3-K5 launched as the int8 route implies, the first
+    loss within 5e-2 relative of the bf16 loop's. -> (launches, the bf16
+    run's losses)."""
+    from types import SimpleNamespace
+
+    from helping_hand_for_egocentric_videos_torch.models import lavila
+
+    meta, data = fixture
+    lcfg = lavila.timesformer_large_config(LOOP_T)
+    bf16_forward = launches_per_forward(SimpleNamespace(lavila_cfg=lcfg, int8=False))
+    int8_forward = launches_per_forward(SimpleNamespace(lavila_cfg=lcfg, int8=True))
+    # one loader thread: the dataset draws its negatives from one generator,
+    # in the order its threads ask (ROADMAP.md, section C), so only then are
+    # the batches of two runs the same
+    steps = ["--max_steps", str(LOOP_REF_STEPS), "--num_workers", "1"]
+    ref = _run_loop(_loop_argv(meta, data, root / "runs", "ref", *steps, *_loop_sets()))
+    ref_counts = _expect_launches(ref, bf16_forward, LOOP_REF_STEPS, ref["val"])
+    q = _run_loop(_loop_argv(meta, data, root / "runs", "int8", "--int8_backbone", *steps, *_loop_sets()))
+    q_counts = _expect_launches(q, int8_forward, LOOP_REF_STEPS, q["val"])
+    ref_losses, q_losses = _losses(ref["train"]), _losses(q["train"])
+    rel = abs(q_losses[1] - ref_losses[1]) / abs(ref_losses[1])
+    res = {"card": card, "steps": q["state"].step, "launches_per_step": int8_forward, "launches": q["launches"],
+           **q_counts, "int8_total_loss": q_losses, "bf16_total_loss": ref_losses, "first_loss_rel_err": rel,
+           "rtol": 5e-2, "finite": q["finite"], "backbone_unchanged": q["backbone_unchanged"],
+           "class_embed_vid_proj_unchanged": q["frozen_unchanged"], "bf16_reference": ref_counts,
+           "int8_val": q["val"], "bf16_val": ref["val"], "peak_memory_gb": q["peak_memory_gb"],
+           # a window a step (every step flushes and waits for the device); the first holds the set-up
+           "int8_step_ms": _window_ms(q["train"]), "bf16_step_ms": _window_ms(ref["train"])}
+    say("train-loop-int8", **res)
+    if not (q["state"].step == LOOP_REF_STEPS and rel <= 5e-2 and q["finite"] and ref["finite"]
+            and q["backbone_unchanged"] and q["frozen_unchanged"]):
+        raise AssertionError("the int8 loop disagrees with the bf16 loop or did not run (train-loop-int8 line)")
+    launches = {k: v + ref["launches"][k] for k, v in q["launches"].items()}
+    return launches, ref_losses
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_train_loop_dist(card, fixture, root: Path, ref_losses: dict):
+    """"train-loop-dist": the loop as one ``torchrun``-style rank (RANK=0,
+    WORLD_SIZE=1, LOCAL_RANK=0, MASTER_ADDR/PORT), so through ``nccl`` and
+    the all-gather / all-reduce code; its first 3 losses (augmentation
+    off) within 1e-4 relative of the one-process loop's. -> launches."""
+    from types import SimpleNamespace
+
+    import torch
+    import torch.distributed as dist
+
+    from helping_hand_for_egocentric_videos_torch.models import lavila
+
+    meta, data = fixture
+    per_forward = launches_per_forward(SimpleNamespace(lavila_cfg=lavila.timesformer_large_config(LOOP_T),
+                                                       int8=False))
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(_free_port())}
+    os.environ.update(env)
+    try:
+        run = _run_loop(_loop_argv(meta, data, root / "runs", "dist", "--max_steps", str(LOOP_REF_STEPS),
+                                   "--num_workers", "1", *_loop_sets()))
+    finally:
+        for k in env:
+            os.environ.pop(k, None)
+    counts = _expect_launches(run, per_forward, LOOP_REF_STEPS, run["val"])
+    losses = _losses(run["train"])
+    rel = {s: abs(losses[s] - ref_losses[s]) / abs(ref_losses[s]) for s in ref_losses}
+    res = {"card": card, "env": env, "backend": "nccl" if torch.cuda.is_available() else "gloo",
+           "group_destroyed": not dist.is_initialized(),
+           "total_loss": losses, "one_process_total_loss": ref_losses, "rel_err": rel, "rtol": 1e-4,
+           "launches": run["launches"], **counts, "finite": run["finite"]}
+    say("train-loop-dist", **res)
+    if not (sorted(rel) == list(range(1, LOOP_REF_STEPS + 1)) and max(rel.values()) <= 1e-4 and run["finite"]
+            and res["group_destroyed"]):
+        raise AssertionError("the one-rank nccl loop disagrees with the one-process loop (train-loop-dist line)")
+    return run["launches"]
+
+
+def _time_loop_shape(device, peaks) -> dict:
+    """K1, K2 and K3 (both modes) alone at the loop's shape (B=32 clips,
+    T=4) in bf16, as ``_time_train_shape`` (K4 and K5 see 32 x 4 x 256 =
+    32768 rows there, the rows of phase 4's timing)."""
+    import torch
+    import torch.nn.functional as F
+
+    from helping_hand_for_egocentric_videos_torch.ops import divided_attention as da
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 13)
+    b = 2 * LOOP_ITEMS
+    out = {}
+    for mode in ("space", "time"):
+        qkv = torch.randn(b, LOOP_T, N, 3 * D, generator=gen, device=device).to(torch.bfloat16)
+        ck, cv, cq = (torch.randn(b, D, generator=gen, device=device).to(torch.bfloat16) for _ in range(3))
+        err, finite, _ = _kernel_vs_plain(qkv, ck, cv, cq, mode)
+        got, _ = da.divided_patch_attention(qkv, ck, cv, cq, mode=mode, heads=HEADS, quant_out=True)
+        want, _ = da.divided_patch_attention_ref(qkv, ck, cv, cq, mode=mode, heads=HEADS, quant_out=True)
+        qres = _quant_check(got, want)
+        if not finite or not err <= TOL["bfloat16"] or not qres["ok"]:
+            raise AssertionError(f"{mode} kernels disagree with their plain versions at the loop's shape: "
+                                 f"{err} {qres}")
+        q, k, v = _sdpa_inputs(qkv, ck, cv, mode)
+        for quant in (False, True):
+            def run(qkv=qkv, ck=ck, cv=cv, cq=cq, mode=mode, quant=quant):
+                return da.divided_patch_attention(qkv, ck, cv, cq, mode=mode, heads=HEADS, quant_out=quant)
+
+            def plain(qkv=qkv, ck=ck, cv=cv, cq=cq, mode=mode, quant=quant):
+                return da.divided_patch_attention_ref(qkv, ck, cv, cq, mode=mode, heads=HEADS, quant_out=quant)
+
+            res = {"B": b, "T": LOOP_T, "max_abs_err": qres["max_abs_err"] if quant else err,
+                   "ms": device_ms(run, 20, (ATTENTION_KERNEL, ROW_KERNEL) if quant else ATTENTION_KERNEL),
+                   "events_ms": cuda_ms(run, 20), "plain_ms": cuda_ms(plain, 5),
+                   "library_ms": None if quant else cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20)}
+            res["bound_ms"], res["bound_by"] = _bound_ms(qkv, mode, peaks, quant_out=quant)
+            key = f"{mode}_int8" if quant else mode
+            say("kernel-timing", mode=key, at="train-loop", **res)
+            out[key] = res
+        del qkv, ck, cv, cq, q, k, v, got, want
+        torch.cuda.empty_cache()
+    return out
+
+
 def main():
     name, card = phase_device()
     import torch
@@ -1485,9 +1889,21 @@ def main():
     launches_train, train_shape, _ = phase_train(card, peaks)
     for mode in ("space", "time"):
         report[mode]["train_shape"] = train_shape[mode]
+    # the kernels alone at the loop's shape before the loops: timed after the
+    # loop's traced step, device_ms read a third of the CUDA events' time
+    # (K1 0.086 against 0.252 ms), kernel events missing from its trace
+    for key, res in _time_loop_shape("cuda", peaks).items():
+        report[key]["loop_shape"] = res
+    loop_root = BUILD / "chip_smoke_loop"
+    shutil.rmtree(loop_root, ignore_errors=True)
+    launches_loop, fixture, _ = phase_train_loop(card, loop_root)
+    launches_loop8, ref_losses = phase_train_loop_int8(card, fixture, loop_root)
+    launches_dist = phase_train_loop_dist(card, fixture, loop_root, ref_losses)
+    shutil.rmtree(loop_root, ignore_errors=True)
     # launches on the main path: the serving runs at 16 and at 128 frames, bf16
-    # and int8, and the train steps
-    total = {k: launches[k] + launches8[k] + launches_long[k] + launches_train[k] for k in _counters()}
+    # and int8, the train steps and the training loops
+    total = {k: launches[k] + launches8[k] + launches_long[k] + launches_train[k] + launches_loop[k]
+             + launches_loop8[k] + launches_dist[k] for k in _counters()}
     counts = {
         "space": total["divided_attention_space"], "time": total["divided_attention_time"],
         "space_int8": total["divided_attention_space_int8"], "time_int8": total["divided_attention_time_int8"],

@@ -1,21 +1,39 @@
 """Shared CLI helpers.
 
 Counterpart of ``helping_hand_for_egocentric_videos_tpu/cli/common.py``:
-the eval CLIs' arguments and the model they build. The port's CLIs run on
-the CUDA device unless given ``--device cpu``.
+the eval CLIs' arguments and the model they build, the process group of a
+``torchrun`` launch, and the environment line. The port's CLIs run on the
+CUDA device unless given ``--device cpu``.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["add_eval_args", "build_eval_model", "print_env"]
+__all__ = ["add_eval_args", "build_eval_model", "maybe_init_distributed", "print_env"]
 
 
-def print_env(device: str):
-    """One line: the torch version and the device the CLI runs on."""
-    name = torch.cuda.get_device_name(torch.device(device)) if torch.device(device).type == "cuda" else "cpu"
-    print(f"torch {torch.__version__} | device={device} ({name})", flush=True)
+def maybe_init_distributed(device="cuda"):
+    """Join the process group of a ``torchrun`` launch (its ``RANK``,
+    ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and ``MASTER_PORT``):
+    ``nccl`` on the CUDA device ``LOCAL_RANK``, ``gloo`` with ``--device
+    cpu``. -> ``parallel.DataParallel``, or None for a run of one process
+    (no ``RANK`` set). Replaces torch.distributed.init_process_group in
+    the reference (run/train.py:374-381); the JAX package reads its own
+    coordinator variables instead."""
+    from ..parallel import init_from_env
+
+    return init_from_env(device)
+
+
+def print_env(device: str, dp=None):
+    """One line: torch, its CUDA, the device the CLI runs on, and the rank
+    and world size (``dp``, a ``parallel.DataParallel``, or None)."""
+    dev = torch.device(device)
+    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    rank, world = (dp.rank, dp.world) if dp is not None else (0, 1)
+    print(f"torch {torch.__version__} | cuda {torch.version.cuda} | device={device} ({name}) | "
+          f"rank {rank} of {world}", flush=True)
 
 
 def build_eval_model(args):

@@ -5,7 +5,9 @@ with the matching solved on the device (``ops/lap.py``). It keeps the
 reference's quirks:
 
 - the matching cost is 5 * L1(cxcywh) + 2 * (-GIoU), with no class cost;
-- ``num_boxes`` is the number of valid target boxes, at least 1;
+- ``num_boxes`` is the number of valid target boxes, at least 1, counted
+  over the global batch (``count_sum``: the sum over ranks, see
+  ``parallel/dist.py``);
 - ``compute_box_loss`` scales the weighted sum by 3 / 4 (the reference
   divides by 4/3, its weight dict having 4 entries); the reference's aux
   layer losses never reach its total, so no aux layer is matched here;
@@ -59,13 +61,16 @@ def _match(pred_boxes, target_boxes, target_valid, costs: MatchCosts):
     return t2p
 
 
-def box_set_loss(pred_boxes, target_boxes, target_valid, costs: MatchCosts = MatchCosts(), num_boxes=None):
+def box_set_loss(pred_boxes, target_boxes, target_valid, costs: MatchCosts = MatchCosts(), num_boxes=None,
+                 count_sum=None):
     """Matched L1 + GIoU losses.
 
     Args:
         pred_boxes: (B, Q, 4) sigmoid cxcywh predictions.
         target_boxes: (B, M, 4) cxcywh in [0, 1]; target_valid (B, M).
-        num_boxes: the normaliser; default max(#valid, 1).
+        num_boxes: the normaliser; default max(#valid, 1), where #valid
+            is ``count_sum`` of this batch's count when given (the count
+            over every rank's batch).
     Returns:
         dict(loss_bbox, loss_giou, num_boxes, target_to_pred).
     """
@@ -75,7 +80,8 @@ def box_set_loss(pred_boxes, target_boxes, target_valid, costs: MatchCosts = Mat
     matched = pred_boxes.gather(1, idx)  # (B, M, 4)
     w = (target_valid & (t2p >= 0)).to(pred_boxes.dtype)[..., None]
     if num_boxes is None:
-        num_boxes = w.sum().clamp_min(1.0)
+        count = w.sum()
+        num_boxes = (count if count_sum is None else count_sum(count)).clamp_min(1.0)
     l1 = ((matched - target_boxes).abs() * w).sum() / num_boxes
     giou = generalized_box_iou_elementwise(box_cxcywh_to_xyxy(matched), box_cxcywh_to_xyxy(target_boxes))
     giou_loss = ((1.0 - giou) * w[..., 0]).sum() / num_boxes
@@ -86,7 +92,7 @@ _QUERIES = ("hand_boxes", "obj_boxes", "all_boxes")
 
 
 def compute_box_loss(box_type: str, pred_boxes, target_boxes_xyxy, costs: MatchCosts = MatchCosts(),
-                     num_queries: int = 12, resize: float = 224.0):
+                     num_queries: int = 12, resize: float = 224.0, count_sum=None):
     """The reference-weighted loss of one box family.
 
     Args:
@@ -94,6 +100,8 @@ def compute_box_loss(box_type: str, pred_boxes, target_boxes_xyxy, costs: MatchC
             2:num_queries) or 'all_boxes'.
         pred_boxes: (B', Q, 4) decoder boxes (B' = B*T with per-frame boxes).
         target_boxes_xyxy: (B', M, 4) raw pixel boxes.
+        count_sum: the sum over ranks of the valid-box count (None: one
+            process); the loss is then this rank's share of the global one.
     Returns:
         (scalar loss, the ``box_set_loss`` dict).
     """
@@ -106,6 +114,6 @@ def compute_box_loss(box_type: str, pred_boxes, target_boxes_xyxy, costs: MatchC
     else:
         raise ValueError(f"box_type must be one of {_QUERIES}, got {box_type!r}")
     tgt, valid = prepare_targets(target_boxes_xyxy, resize=resize)
-    out = box_set_loss(pred, tgt, valid, costs)
+    out = box_set_loss(pred, tgt, valid, costs, count_sum=count_sum)
     total = (costs.weight_bbox * out["loss_bbox"] + costs.weight_giou * out["loss_giou"]) * costs.total_scale
     return total, out

@@ -20,11 +20,13 @@ __all__ = ["word_contrastive_loss"]
 
 
 def word_contrastive_loss(noun_embeds, pred_noun_embeds, noun_gt_inds, temperature: float = 0.07,
-                          noun_threshold: float = 0.6):
+                          noun_threshold: float = 0.6, count_sum=None):
     """Args:
         noun_embeds: (V, E) projected noun-dictionary embeddings.
         pred_noun_embeds: (B, Q_obj, E) projected object-query states.
         noun_gt_inds: (B, M) int noun ids; 0 is padding.
+        count_sum: the sum over ranks of the valid-slot count (None: one
+            process); the loss is then this rank's share of the global mean.
     Returns:
         the mean cross-entropy over the valid noun slots (a scalar).
     """
@@ -50,4 +52,5 @@ def word_contrastive_loss(noun_embeds, pred_noun_embeds, noun_gt_inds, temperatu
     logp = torch.log_softmax(torch.where(noun_mask, -1.0, sim_all) / temperature, dim=-1)
     ce = -logp.gather(1, flat[:, None])[:, 0]
     vmask = valid.reshape(-1).to(ce.dtype)
-    return (ce * vmask).sum() / vmask.sum().clamp_min(1.0)
+    count = vmask.sum()
+    return (ce * vmask).sum() / (count if count_sum is None else count_sum(count)).clamp_min(1.0)

@@ -1,4 +1,4 @@
-from .evaluate import EvalModel
+from .evaluate import EvalModel, run_egomcq
 from .step import (
     TrainConfig,
     TrainState,
@@ -16,4 +16,5 @@ __all__ = [
     "make_optimizer",
     "make_train_step",
     "pretrain_loss_and_metrics",
+    "run_egomcq",
 ]

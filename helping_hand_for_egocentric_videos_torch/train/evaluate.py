@@ -1,10 +1,14 @@
-"""Zero-shot embedding model: text and video embeddings for retrieval.
+"""Zero-shot embedding model and the EgoMCQ harness.
 
-Counterpart of ``EvalModel`` in
+Counterpart of ``EvalModel``, ``_prefetch_items`` and ``run_egomcq`` in
 ``helping_hand_for_egocentric_videos_tpu/train/evaluate.py``:
 - text embed = txt_proj(text feature map at the EOT token);
 - video embed = obj_proj(hs[-1])[:, -1] of the object decoder over the
-  visual tower's patch grid, plus the decoder's predicted boxes.
+  visual tower's patch grid, plus the decoder's predicted boxes;
+- EgoMCQ (the reference's run/test_EgoMCQ.py:25-135): a query text
+  against 5 candidate clips an item, accuracy split by question type.
+  The pretraining loop runs it online. The Epic-Kitchens and EGTEA
+  harnesses are not ported yet (ROADMAP.md queue A item 9).
 
 The visual tower runs in ``dtype`` (bf16 by default) with its divided
 attention in the CUDA kernel; the text tower and the decoder run in f32
@@ -20,6 +24,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..metrics import egomcq_accuracy_metrics
+from ..metrics.sim import sim_matrix
 from ..models.clip_text import encode_text
 from ..models.lavila import Lavila, LavilaConfig
 from ..models.obj_decoder import DecoderConfig, ObjDecoder, decoder_forward, obj_proj, txt_proj
@@ -27,7 +33,7 @@ from ..models.quant import cast_floats, quantize_lavila_params
 from ..models.spacetime_vit import spacetime_forward
 from ..ops.preprocess import resize_normalize, shortside_centercrop_normalize
 
-__all__ = ["EvalModel"]
+__all__ = ["EvalModel", "run_egomcq"]
 
 _PREPROCESS = ("resize", "shortside")
 
@@ -104,3 +110,107 @@ class EvalModel:
             out = decoder_forward(self.decoder, self.dec_cfg, grid)
             emb = obj_proj(self.decoder, out.hs[-1])[:, -1]
             return emb.cpu().numpy(), out.pred_boxes.cpu().numpy()
+
+
+def _cos(a, b) -> np.ndarray:
+    return sim_matrix(torch.as_tensor(a), torch.as_tensor(b)).numpy()
+
+
+def _prefetch_items(dataset, n: int, depth: int = 16):
+    """Yield dataset[0..n) in order, decoded ahead by a background thread.
+
+    The reference harness loops a bs=1 DataLoader whose workers prefetch
+    (run/test_EgoMCQ.py:56); a plain ``dataset[i]`` loop would serialise
+    host decode against device compute. A dataset error surfaces in the
+    consumer; a consumer that stops early releases the producer.
+    """
+    import queue
+    import threading
+
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    stop = object()
+    cancelled = threading.Event()
+
+    def _put(item) -> bool:
+        # a bounded put that notices the consumer leaving, so the producer
+        # never blocks forever holding `depth` decoded clips
+        while not cancelled.is_set():
+            try:
+                q.put(item, timeout=0.2)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def produce():
+        try:
+            for i in range(n):
+                if not _put(dataset[i]):
+                    return
+        except BaseException as e:
+            _put(e)
+        finally:
+            _put(stop)
+
+    threading.Thread(target=produce, daemon=True).start()
+    try:
+        while True:
+            item = q.get()
+            if item is stop:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+    finally:
+        cancelled.set()
+
+
+def _reject_multicrop(model):
+    """The JAX harness refuses a multi-crop model here (its embeddings come
+    back crop-major); the port's ``EvalModel`` has no multi-crop mode yet
+    (ROADMAP.md queue A item 10), so there is nothing to refuse. The check
+    comes back with that mode."""
+
+
+def run_egomcq(model: EvalModel, dataset, limit: int | None = None, progress=None, items_per_batch: int = 4,
+               out_sims: str | None = None):
+    """-> {'Intra-video': %, 'Inter-video': %, 'n_items': n}.
+
+    The reference iterates bs=1 (one MCQ item = 5 candidate clips a step,
+    run/test_EgoMCQ.py:56-58); here ``items_per_batch`` items go to the
+    device as one batch of 5*K clips. ``out_sims`` dumps an .npz of the
+    raw per-item similarity rows, ground truth and types (the reference
+    saves an equivalent .pth, run/test_EgoMCQ.py:119).
+    """
+    _reject_multicrop(model)
+    preds, gts, types = [], [], []
+    n = len(dataset) if limit is None else min(limit, len(dataset))
+    buf = []
+
+    def flush():
+        if not buf:
+            return
+        videos = np.concatenate([it["video"] for it in buf])  # (5K, T, H, W, C)
+        video_embeds, _ = model.embed_video(videos)
+        text_embeds = model.embed_text([it["text"] for it in buf])  # (K, E)
+        n_opts = buf[0]["video"].shape[0]
+        for j, it in enumerate(buf):
+            sim = _cos(text_embeds[j:j + 1], video_embeds[j * n_opts:(j + 1) * n_opts])
+            preds.append(sim[0])
+            gts.append(it["correct"])
+            types.append(it["type"])
+        buf.clear()
+
+    for i, item in enumerate(_prefetch_items(dataset, n, depth=4 * items_per_batch)):
+        buf.append(item)
+        if len(buf) == items_per_batch:
+            flush()
+        if progress and i % 50 == 0:
+            progress(i, n)
+    flush()
+    preds = np.stack(preds)
+    if out_sims:
+        np.savez(out_sims, sims=preds, gt=np.asarray(gts), types=np.asarray(types))
+    metrics = egomcq_accuracy_metrics(preds, np.asarray(gts), np.asarray(types))
+    metrics["n_items"] = n
+    return metrics

@@ -13,8 +13,15 @@ One step of the reference's training iteration:
 6. AdamW on the decoder only, with the reference's decay policy.
 
 Nothing in the step waits for the device: the matchings run as tensor
-operations, and every metric stays a device tensor until the caller
-reads it.
+operations, the augmentation draws on the device, and every metric stays
+a device tensor until the caller reads it.
+
+With a ``parallel.DataParallel`` (``dist``), each rank runs the step on
+its rows of the global batch: EgoNCE on the all-gathered embeddings, the
+box and word losses normalised by counts summed over ranks, the
+gradients averaged. Each term is scaled so that the averaged gradient is
+the one-process gradient of the global batch, and the metrics are the
+global batch's.
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ from ..losses import compute_box_loss, egonce_multi_positive_loss, word_contrast
 from ..metrics.sim import compute_tv_accuracy, sim_matrix
 from ..models.lavila import lavila_forward
 from ..models.obj_decoder import DecoderConfig, ObjDecoder, decoder_forward, obj_proj, txt_proj
-from ..ops.preprocess import resize_normalize
+from ..ops.preprocess import apply_augment, augment_rows, resize_normalize, sample_augment_params, transform_boxes
 
 __all__ = [
     "TrainConfig",
@@ -60,7 +67,8 @@ class TrainConfig:
     input_res: int = 224  # device-side preprocess target of uint8 video
     num_queries: int = 12  # hand and object queries (the summary query excluded)
     backbone_dtype: torch.dtype = torch.bfloat16
-    # train-time random augmentation; not ported yet (make_train_step raises)
+    # train-time random augmentation (data_loader/transforms.py:64-69); off in
+    # the reference's shipped command (force_centercrop=True)
     augment: bool = False
     randcrop_scale: tuple = (0.5, 1.0)
     color_jitter: tuple = (0.0, 0.0, 0.0)  # brightness, saturation, hue
@@ -158,8 +166,9 @@ def backbone_features(backbone, lavila_cfg, video, tokens, *, dtype=torch.bfloat
 
 
 def pretrain_loss_and_metrics(decoder: ObjDecoder, dec_cfg: DecoderConfig, cfg: TrainConfig, video_grid, text_fmap,
-                              tokens, noun_vec, verb_vec, boxes, noun_gt_inds, noun_dict_embeds, generator=None):
-    """The training loss on backbone features -> (total loss, metrics).
+                              tokens, noun_vec, verb_vec, boxes, noun_gt_inds, noun_dict_embeds, generator=None,
+                              dist=None):
+    """The training loss on backbone features -> (objective, metrics).
 
     Shapes: video_grid (N_v, T, N, C); text_fmap (N_v*R, 77, Wt); tokens
     (N_v*R, 77); noun_vec (N_v, V_n); verb_vec (N_v, V_v); boxes (N_v, T,
@@ -168,6 +177,15 @@ def pretrain_loss_and_metrics(decoder: ObjDecoder, dec_cfg: DecoderConfig, cfg: 
     The metrics (``total_loss``, ``nce_loss``, ``box_loss``, ``word_loss``,
     ``top1_video_to_text``, ``top1_text_to_video``) are detached device
     tensors.
+
+    One process: the objective is ``total_loss``. With ``dist`` (a
+    ``parallel.DataParallel``) the inputs are this rank's rows. EgoNCE
+    runs on the gathered embeddings, whole on every rank; the gather's
+    backward sums its gradient over the W ranks, so each rank's EgoNCE
+    gradient is W times its rows' share. The box and word losses are this
+    rank's share of the global ones (counts summed over ranks) and enter
+    the objective times W. Averaged over ranks, the gradient is then the
+    one-process gradient; the metrics are the global batch's.
     """
     n_videos, t = video_grid.shape[:2]
     out = decoder_forward(decoder, dec_cfg, video_grid, generator=generator, deterministic=generator is None)
@@ -177,6 +195,11 @@ def pretrain_loss_and_metrics(decoder: ObjDecoder, dec_cfg: DecoderConfig, cfg: 
     text_embeds = txt_proj(decoder, text_fmap[rows, eot])
     last = obj_proj(decoder, out.hs[-1])
     video_embeds = last[:, -1]
+    count_sum = None if dist is None else dist.sum
+    if dist is not None:  # EgoNCE over the global batch
+        text_embeds, video_embeds = dist.gather(text_embeds), dist.gather(video_embeds)
+        tokens, verb_vec, noun_vec = (dist.gather_const(x) for x in (tokens, verb_vec, noun_vec))
+    n_global = video_embeds.shape[0]
 
     # EgoNCE over the batch
     sim = sim_matrix(text_embeds, video_embeds)  # (N_v*R, N_v)
@@ -188,21 +211,28 @@ def pretrain_loss_and_metrics(decoder: ObjDecoder, dec_cfg: DecoderConfig, cfg: 
     # box losses on per-frame predictions
     hand = boxes[:, :, :2, :].reshape(n_videos * t, 2, 4)
     obj = boxes[:, :, 2:, :].reshape(n_videos * t, -1, 4)
-    kw = {"num_queries": cfg.num_queries, "resize": cfg.resize}
+    kw = {"num_queries": cfg.num_queries, "resize": cfg.resize, "count_sum": count_sum}
     loss_hand, _ = compute_box_loss("hand_boxes", out.pred_boxes, hand, **kw)
     loss_obj, _ = compute_box_loss("obj_boxes", out.pred_boxes, obj, **kw)
     box_loss = loss_hand + loss_obj
 
     # word contrastive
     noun_embeds = txt_proj(decoder, noun_dict_embeds)
-    word_loss = word_contrastive_loss(noun_embeds, last[:, :-1], noun_gt_inds, temperature=cfg.temperature)
+    word_loss = word_contrastive_loss(noun_embeds, last[:, :-1], noun_gt_inds, temperature=cfg.temperature,
+                                      count_sum=count_sum)
 
+    local = box_loss + cfg.word_loss_weight * word_loss
+    if dist is None:
+        objective = nce_loss + local
+    else:
+        objective = nce_loss + dist.world * local
+        box_loss, word_loss = dist.sum(box_loss), dist.sum(word_loss)
     total = nce_loss + box_loss + cfg.word_loss_weight * word_loss
 
     with torch.no_grad():  # train-time accuracy on the primary captions
         r = cfg.rephrase_factor
-        sim_primary = sim.reshape(n_videos, r, n_videos)[:, 0, :]
-        acc_vt, acc_tv = compute_tv_accuracy(sim_primary, text_embeds, sim_v, sim_n, n_videos, rephrase_factor=r)
+        sim_primary = sim.reshape(n_global, r, n_global)[:, 0, :]
+        acc_vt, acc_tv = compute_tv_accuracy(sim_primary, text_embeds, sim_v, sim_n, n_global, rephrase_factor=r)
     metrics = {
         "total_loss": total.detach(),
         "nce_loss": nce_loss.detach(),
@@ -211,38 +241,69 @@ def pretrain_loss_and_metrics(decoder: ObjDecoder, dec_cfg: DecoderConfig, cfg: 
         "top1_video_to_text": acc_vt,
         "top1_text_to_video": acc_tv,
     }
-    return total, metrics
+    return objective, metrics
 
 
 def _global_norm(tensors):
     return torch.sqrt(sum((g * g).sum() for g in tensors))
 
 
-def make_train_step(dec_cfg: DecoderConfig, lavila_cfg, cfg: TrainConfig):
+def augment_batch(cfg: TrainConfig, video, boxes, generator, dist=None):
+    """The step's train-time augmentation of uint8 clips -> (normalised
+    video, boxes in the augmented frames). The parameters are drawn from
+    ``generator`` for the global batch, so every rank draws the same ones
+    and keeps its own rows: a W-rank step augments as the one-process step
+    of the same global batch does."""
+    if video.dtype != torch.uint8:
+        raise ValueError(
+            "augment=True needs raw uint8 video (the augmentation crops and normalises on the device); "
+            f"got {video.dtype}: feed decoded frames, not preprocessed floats"
+        )
+    b, _, h, w, _ = video.shape
+    n_global = b if dist is None else b * dist.world
+    bj, sj, hj = cfg.color_jitter
+    params = sample_augment_params(generator, n_global, h, w, scale=cfg.randcrop_scale, brightness=bj,
+                                   saturation=sj, hue=hj, device=video.device)
+    if dist is not None:
+        params = augment_rows(params, dist.rows(n_global))
+    video = apply_augment(video, params, cfg.input_res)
+    return video, transform_boxes(boxes, params, res=cfg.input_res, coords_res=cfg.input_res)
+
+
+def make_train_step(dec_cfg: DecoderConfig, lavila_cfg, cfg: TrainConfig, *, dist=None):
     """Build the train step.
 
-    ``step(state, backbone, batch, noun_dict_embeds, generator=None) ->
-    (state, metrics)``. ``batch`` keys: video ((B, T, H, W, C), uint8 or
-    normalised float), tokens, noun_vec, verb_vec, boxes, nouns (see
-    ``pretrain_loss_and_metrics``); arrays or tensors, moved to the
-    decoder's device (the backbone must be there). ``generator`` (on that
-    device) turns dropout on. The decoder's parameters are updated in
-    place, each ``.grad`` holds the gradient the update used, and the
-    returned state counts one more step. ``metrics`` adds ``grad_norm``,
-    the global norm of the decoder's gradients before any clipping.
-    """
-    if cfg.augment:
-        raise NotImplementedError(
-            "TrainConfig.augment=True: the train-time augmentation (random_resized_crop_flip_jitter, "
-            "transform_boxes) is not ported yet; it is ROADMAP.md queue A item 5a"
-        )
+    ``step(state, backbone, batch, noun_dict_embeds, generator=None, *,
+    aug_generator=None) -> (state, metrics)``. ``batch`` keys: video
+    ((B, T, H, W, C), uint8 or normalised float), tokens, noun_vec,
+    verb_vec, boxes, nouns (see ``pretrain_loss_and_metrics``); arrays or
+    tensors, moved to the decoder's device (the backbone must be there).
+    ``generator`` (on that device) turns dropout on. With ``cfg.augment``
+    the uint8 clips are augmented on the device (``augment_batch``), the
+    parameters drawn from ``aug_generator``, else from ``generator``, else
+    from a generator seeded with the step count (deterministic, as the JAX
+    step's ``fold_in(PRNGKey(0), step)``). The decoder's parameters are
+    updated in place, each ``.grad`` holds the gradient the update used,
+    and the returned state counts one more step. ``metrics`` adds
+    ``grad_norm``, the global norm of the decoder's gradients before any
+    clipping.
 
-    def step(state: TrainState, backbone, batch, noun_dict_embeds, generator=None):
+    ``dist``: a ``parallel.DataParallel``; ``batch`` is then this rank's
+    rows of the global batch, and the update is the one-process update of
+    the global batch (``pretrain_loss_and_metrics``).
+    """
+
+    def step(state: TrainState, backbone, batch, noun_dict_embeds, generator=None, *, aug_generator=None):
         decoder, optimizer = state.decoder, state.optimizer
         dev = next(decoder.parameters()).device
         b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
-        video = b["video"]
-        if video.dtype == torch.uint8:  # device-side preprocess
+        video, boxes = b["video"], b["boxes"]
+        if cfg.augment:
+            gen = aug_generator if aug_generator is not None else generator
+            if gen is None:
+                gen = torch.Generator(device=dev).manual_seed(state.step)
+            video, boxes = augment_batch(cfg, video, boxes, gen, dist)
+        elif video.dtype == torch.uint8:  # device-side preprocess
             video = resize_normalize(video, cfg.input_res)
         video_grid, text_fmap = backbone_features(backbone, lavila_cfg, video, b["tokens"],
                                                   dtype=cfg.backbone_dtype)
@@ -250,10 +311,12 @@ def make_train_step(dec_cfg: DecoderConfig, lavila_cfg, cfg: TrainConfig):
         optimizer.zero_grad(set_to_none=True)
         loss, metrics = pretrain_loss_and_metrics(
             decoder, dec_cfg, cfg, video_grid.float(), text_fmap.float(), b["tokens"], b["noun_vec"],
-            b["verb_vec"], b["boxes"], b["nouns"], torch.as_tensor(noun_dict_embeds, device=dev),
-            generator=generator,
+            b["verb_vec"], boxes, b["nouns"], torch.as_tensor(noun_dict_embeds, device=dev),
+            generator=generator, dist=dist,
         )
         loss.backward()
+        if dist is not None:
+            dist.average_grads(decoder.parameters())
         grads = [p.grad for p in decoder.parameters() if p.grad is not None]
         metrics["grad_norm"] = _global_norm(grads)
         if cfg.clip_grad > 0:  # optax's clip_by_global_norm over the trained parameters

@@ -28,6 +28,9 @@ def test_experiment_config_equals_jax(overrides):
         section, name = key.split(".")
         setattr(getattr(got, section), name, val)
     for section, fields in dataclasses.asdict(got).items():
+        if not isinstance(fields, dict):  # a top-level field (name, output_dir)
+            assert fields == getattr(want, section), section
+            continue
         assert fields == {k: v for k, v in dataclasses.asdict(getattr(want, section)).items() if k in fields}
 
 

@@ -19,7 +19,7 @@ parameters come over through ``models/bridge.py``. With dropout off:
 And the optimizer's groups by name, the frozen ``class_embed`` /
 ``vid_proj``, the schedule's LR at every step against optax's, the
 ``ValueError``s, the loss falling over 8 steps, dropout, the backbone
-left without gradients, and ``augment=True`` refused. A ``cuda`` case
+left without gradients, and the step with ``augment=True``. A ``cuda`` case
 runs one step of a kernel-friendly tiny config through both attention
 routes on the card; JAX comes in only through a fixture, so this file
 runs there with ``python -m pytest --noconftest -m cuda
@@ -284,8 +284,25 @@ def test_dropout_draws_from_the_generator(setup):
 
 
 def test_augment_is_not_ported_yet(setup):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_train_step(setup.dcfg, setup.lcfg, dataclasses.replace(setup.tcfg, augment=True))
+    """The augmentation is ported now (its parity with JAX is in
+    ``test_torch_augment.py``, its data-parallel draws in
+    ``test_torch_dist.py``): ``augment=True`` builds a step; float video
+    raises the JAX step's ``ValueError``; without a generator the draws are
+    seeded from the step count (the same loss from the same state), and
+    another generator seed gives another view."""
+    aug = dataclasses.replace(setup.tcfg, augment=True, input_res=28, color_jitter=(0.2, 0.2, 0.1))
+    rng = np.random.default_rng(4)
+    batch = dict(setup.batch, video=rng.integers(0, 256, size=(4, 2, 40, 56, 3), dtype=np.uint8),
+                 boxes=setup.batch["boxes"] * 0.2)
+    losses = []
+    for gen in (None, None, torch.Generator().manual_seed(3)):
+        backbone, state, step = _port(setup, augment=True, input_res=28, color_jitter=(0.2, 0.2, 0.1))
+        _, m = step(state, backbone, batch, setup.noun_dict, aug_generator=gen)
+        losses.append(float(m["total_loss"]))
+    assert np.isfinite(losses).all() and losses[0] == losses[1] != losses[2]
+    backbone, state, _ = _port(setup)
+    with pytest.raises(ValueError, match="uint8"):
+        make_train_step(setup.dcfg, setup.lcfg, aug)(state, backbone, setup.batch, setup.noun_dict)
 
 
 @pytest.fixture
