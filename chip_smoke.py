@@ -15,7 +15,8 @@ failed check raises and the script exits non-zero:
    started together), with the build seconds and, a line a compiled
    kernel, ptxas's registers, spills and static shared memory.
 3. kernel vs plain: the divided-attention kernel in both modes at
-   (B=2, T=4) and the serving shape (B=8, T=16), N=256, H=16, dh=64, in
+   (B=2, T=4), the serving shape (B=8, T=16) and the eval harnesses'
+   batches (20, 4), (10, 16) and (60, 16), N=256, H=16, dh=64, in
    f32 and bf16, against the plain PyTorch version on the same inputs
    (f32 atol 1e-4; bf16 against the plain version in f32 on the bf16
    inputs, atol 2e-2): the patch output and the merged CLS output. The
@@ -86,7 +87,42 @@ failed check raises and the script exits non-zero:
 11. end to end at T=128: phases 7 and 8 on the served models, 2 clips of
    128 frames.
 
-12. train: the pretraining step (``train.make_train_step``) on the frozen
+12. eval checkpoints: seeded random weights at full width (TimeSformer-L
+   and the 13-query decoder, 4 frames) written in the reference's layout
+   under ``build/``, shared by phases 13-15. Each of those runs an eval
+   CLI's ``main`` with the launch counts set to 0 just before and read
+   just after (each video forward must launch what ``launches_per_forward``
+   says: K1 and K2 24 times each in bf16; K3 24 + 24, K4 72, K5 24 with
+   ``--int8``), checks its ``--out`` metrics (finite, in range) and its
+   forwards, and prints the harness call's clips/s (its wall time, data
+   decode included), the share of it spent waiting for a decoded item,
+   and the peak memory. Then the same data goes through the harness
+   function with an f32 kernel-route ``EvalModel`` and an f32
+   ``attention_backend="reference"`` one on the CLI's weights: every
+   similarity matrix the harness takes within 1e-3 absolute, and the
+   CLI's bf16 embeddings against the f32 plain ones with a cosine of at
+   least 0.99 a clip. ``HarnessProbe`` observes the runs without changing
+   them.
+13. eval-egomcq: ``cli.test_egomcq.main`` on ``write_egoclip_fixture``'s 40
+   EgoMCQ items (4 frames, 5 clips an item, 4 items = 20 clips a forward).
+14. eval-epic: ``cli.test_epic.main`` on a synthetic EPIC-100 layout (64
+   clips of 0.5-2 s over three 256 x 456 ``.MP4.npy`` videos, a graded
+   seeded relevancy matrix with a 1 in every row, a permuted
+   ``indexes.pkl``, ``fps_dict_256.pth``) at 16 frames, ``--batch_size 8``,
+   in bf16 and with ``--int8`` (int8 vs bf16 embeddings: cosine of at least
+   ``INT8_COS_FLOOR`` a clip).
+15. eval-egtea: ``cli.test_egtea.main`` on a synthetic EGTEA layout (106
+   labels, 8 clips of 256 x 342 ``.mp4.npy`` frames, three shorter than 16
+   x 2 so the dataset pads them), split 1, 10 clips of 16 frames at stride
+   2, with ``--spatial_crops 1`` (10 clips a forward) and ``6`` (60: 15360
+   time tubes, within the f32 route's grid); the f32 comparison on the
+   6-crop model and the first two videos. Then "eval-tools":
+   ``cli.extract_features.main`` over the EPIC videos (16-frame windows
+   every 0.5 s) and ``cli.parity_check.main`` on the EPIC layout with
+   ``--int8_diff`` and a target table of "eval-epic"'s bf16 metrics (each
+   target must pass: the same weights and data give the same metrics).
+
+16. train: the pretraining step (``train.make_train_step``) on the frozen
    full-width TimeSformer-L at 4 frames and the 13-query decoder with its
    22047-class head, seeded random weights; a fixed batch of 16 uint8 clips
    (one rank's share of the global 128 over 8 ranks), 5 captions a clip
@@ -109,8 +145,8 @@ failed check raises and the script exits non-zero:
    ``mfu_bf16``; and K1 and K2 alone at the train shape (B=16, T=4) as in
    phase 3.
 
-13. train-loop: ``cli.train.main``, the pretraining entry point, at the
-   full width of phase 12 from seeded random weights, on a synthetic
+17. train-loop: ``cli.train.main``, the pretraining entry point, at the
+   full width of phase 16 from seeded random weights, on a synthetic
    EgoClip layout the script writes under ``build/`` (two videos as
    chunked ``videos_256_chunked/<uid>/0.mp4.npy`` of 256 x 456 frames,
    192 narrations with hand-object detections, 40 EgoMCQ items, the
@@ -128,19 +164,19 @@ failed check raises and the script exits non-zero:
    times a train step and an eval forward, K3-K6 never. It prints the
    steady window's steps/s, clips/s, step time, the share of it spent
    waiting for data, and peak memory.
-14. train-loop-int8: the loop for 3 steps in bf16 (augmentation off), then
+18. train-loop-int8: the loop for 3 steps in bf16 (augmentation off), then
    with ``--int8_backbone``: K3 24 + 24, K4 72 and K5 24 launches a train
    step and an eval forward (the fused int8 route at T=4), K1/K2 never;
    the first step's loss within 5e-2 relative of the bf16 loop's.
-15. train-loop-dist: the loop for 3 steps as one ``torchrun``-style rank
+19. train-loop-dist: the loop for 3 steps as one ``torchrun``-style rank
    (RANK=0, WORLD_SIZE=1, LOCAL_RANK=0, MASTER_ADDR/PORT set by the
    script), so through ``nccl`` and the all-gather / all-reduce code: its
-   losses within 1e-4 relative of the bf16 loop's of phase 14, the group
-   destroyed at the end. Before phase 13, K1, K2 and K3 alone at the
-   loop's shape (B=32, T=4), as in phase 12.
+   losses within 1e-4 relative of the bf16 loop's of phase 18, the group
+   destroyed at the end. Before phase 17, K1, K2 and K3 alone at the
+   loop's shape (B=32, T=4), as in phase 16.
 
 Then one ``{"kernels": [...]}`` line, each kernel's launches summed over
-phases 5, 6, 10 and 12-15, and, last, ``{"ok": true, "device":
+phases 5, 6, 10 and 12-19, and, last, ``{"ok": true, "device":
 {...}}``. Time attention is zero-initialised in the model (its qkv feeds
 the kernel zeros), so the smoke gives its weights seeded N(0, 0.02) values.
 """
@@ -161,6 +197,7 @@ import types
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import replace
+from functools import partial
 from pathlib import Path
 
 import numpy as np
@@ -169,6 +206,9 @@ SEED = 0
 N, HEADS, DH = 256, 16, 64
 D = HEADS * DH
 KERNEL_SHAPES = ((2, 4), (8, 16))  # (B, T); the last is the serving shape
+# (B, T) of the eval harnesses' forwards beside (8, 16): EgoMCQ 4 items x 5 clips at 4 frames, EGTEA
+# 10 windows of 16 frames, and 6 crops of them
+EVAL_SHAPES = ((20, 4), (10, 16), (60, 16))
 SERVE_T, RES = 16, 224
 BUCKETS = (1, 2, 4, 8)
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -408,6 +448,19 @@ def phase_kernels(device, peaks):
             bound_ms=bound_ms, bound_by=bound_by, plan=_plan(N if mode == "space" else t))
         del qkv, ck, cv, cq, q, k, v, lib_out, ref
         torch.cuda.empty_cache()
+        for b, t in EVAL_SHAPES:  # checked only: the eval harnesses' batches
+            for dtype in (torch.float32, torch.bfloat16):
+                dname = str(dtype).removeprefix("torch.")
+                qkv = torch.randn(b, t, N, 3 * D, generator=gen, device=device).to(dtype)
+                ck, cv, cq = (torch.randn(b, D, generator=gen, device=device).to(dtype) for _ in range(3))
+                err, finite, _ = _kernel_vs_plain(qkv, ck, cv, cq, mode)
+                check = {"B": b, "T": t, "dtype": dname, "max_abs_err": err, "tolerance": TOL[dname], "at": "eval"}
+                say("kernel-vs-plain", mode=mode, **check)
+                if not finite or not err <= TOL[dname]:
+                    raise AssertionError(f"{mode} kernel disagrees with the plain version: {check}")
+                report[mode]["checks"].append(check)
+                del qkv, ck, cv, cq
+                torch.cuda.empty_cache()
     report["space"]["long_clip"] = _time_space_long(device, peaks, gen)
     return report
 
@@ -1105,10 +1158,13 @@ def _serve_cli(argv, card):
     return model, launches
 
 
-def phase_serve_long(card, device="cuda", backbone="timesformer_large", frames=LONG_T):
-    """Write reference-layout checkpoints of seeded random weights at 4
-    frames, then serve them with ``cli.serve`` at ``frames`` in bf16 and
-    in int8. -> (bf16 model, int8 model, launches of the two runs)."""
+def write_reference_checkpoints(root, device, seed, backbone="timesformer_large"):
+    """Seeded random weights at the full width of ``backbone`` and of the
+    13-query decoder (with its trajectory head), both at ``CKPT_T`` frames
+    as LaviLa releases them, time attention and the temporal embedding
+    N(0, 0.02) (a non-zero time attention; an inflation that shows),
+    written under ``root`` in the reference's layout. -> (backbone path,
+    decoder path, the Lavila, the ObjDecoder, seconds to write)."""
     import torch
 
     from helping_hand_for_egocentric_videos_torch.models import DecoderConfig, Lavila, ObjDecoder, lavila
@@ -1117,24 +1173,32 @@ def phase_serve_long(card, device="cuda", backbone="timesformer_large", frames=L
     lcfg = getattr(lavila, f"{backbone}_config")(num_frames=CKPT_T, project_embed_dim=256)
     dcfg = DecoderConfig(num_queries=13, feature_dim=lcfg.visual.width, text_width=lcfg.text.width,
                          num_frames=CKPT_T, patches_per_frame=lcfg.visual.patches_per_frame, pred_traj=True)
-    gen = torch.Generator(device=device).manual_seed(SEED + 4)
+    gen = torch.Generator(device=device).manual_seed(seed)
     model = Lavila(lcfg, generator=gen, device=device)
     decoder = ObjDecoder(dcfg, generator=gen, device=device)
-    with torch.no_grad():  # as build_serving_model: a non-zero time attention
+    with torch.no_grad():
         for blk in model.visual.blocks:
             blk.timeattn.qkv.weight.normal_(0.0, 0.02, generator=gen)
             blk.timeattn.proj.weight.normal_(0.0, 0.02, generator=gen)
-        model.visual.temporal_embed.normal_(0.0, 0.02, generator=gen)  # so the inflation shows
+        model.visual.temporal_embed.normal_(0.0, 0.02, generator=gen)
+    t0 = time.perf_counter()
+    lsd, dsd = reference_state_dicts(model, decoder, lcfg.visual)
+    bpath, dpath = f"{root}/lavila_{backbone}_{CKPT_T}f.pth", f"{root}/decoder_nq12_{CKPT_T}f.pth.tar"
+    torch.save({f"module.{k}": v for k, v in lsd.items()}, bpath)
+    torch.save({"state_dict": dsd, "epoch": 0}, dpath)
+    return bpath, dpath, model, decoder, time.perf_counter() - t0
+
+
+def phase_serve_long(card, device="cuda", backbone="timesformer_large", frames=LONG_T):
+    """Write reference-layout checkpoints of seeded random weights at 4
+    frames, then serve them with ``cli.serve`` at ``frames`` in bf16 and
+    in int8. -> (bf16 model, int8 model, launches of the two runs)."""
+    import torch
+
     BUILD.mkdir(exist_ok=True)
     served = {}
     with tempfile.TemporaryDirectory(dir=BUILD, prefix="serve_long_") as tmp:
-        t0 = time.perf_counter()
-        lsd, dsd = reference_state_dicts(model, decoder, lcfg.visual)
-        bpath, dpath = f"{tmp}/lavila_{backbone}_{CKPT_T}f.pth", f"{tmp}/decoder_nq12_{CKPT_T}f.pth.tar"
-        torch.save({f"module.{k}": v for k, v in lsd.items()}, bpath)
-        torch.save({"state_dict": dsd, "epoch": 0}, dpath)
-        write_s = time.perf_counter() - t0
-        del lsd, dsd
+        bpath, dpath, model, decoder, write_s = write_reference_checkpoints(tmp, device, SEED + 4, backbone)
         argv = ["--backbone", backbone, "--backbone_ckpt", bpath, "--decoder_ckpt", dpath,
                 "--num_frames", str(frames), "--buckets", *map(str, LONG_BUCKETS), "--port", "0",
                 "--device", device]
@@ -1860,6 +1924,458 @@ def _time_loop_shape(device, peaks) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- the eval harnesses
+EVAL_MCQ, EVAL_MCQ_PER_FORWARD, EVAL_MCQ_T = 40, 4, 4  # items; items a forward (5 clips each); frames
+EPIC_CLIPS, EPIC_VIDEOS, EPIC_FRAMES, EPIC_HW, EPIC_T, EPIC_BATCH = 64, 3, 150, (256, 456), 16, 8
+EGTEA_HW, EGTEA_CLIPS, EGTEA_T, EGTEA_STRIDE = (256, 342), 10, 16, 2
+# frames of the 8 split-1 videos; 20, 28 and 31 < 16 x 2 are zero-padded to one window
+EGTEA_LENGTHS = (20, 96, 28, 64, 120, 31, 48, 75)
+EGTEA_F32_VIDEOS = 2  # the f32 comparison's videos, a padded one first
+EGTEA_LABELS = 106
+SIM_ATOL = 1e-3  # f32 kernel route vs f32 plain attention, raw similarity matrices
+EPIC_VERBS = ("take", "put", "open", "close", "wash", "cut", "pour", "turn-on")
+EPIC_NOUNS = ("plate", "knife", "fridge", "tap", "onion", "drawer", "pan", "cup")
+
+
+def write_epic_fixture(root: Path) -> tuple[str, str]:
+    """A synthetic EPIC-100 retrieval layout under ``root`` -> (meta_dir,
+    data_dir): ``EPIC_VIDEOS`` videos of ``EPIC_FRAMES`` seeded 256 x 456
+    frames as ``<participant>/<video>.MP4.npy`` sidecars, ``EPIC_CLIPS``
+    narrated clips of 0.5-2 s over them, the sentence list, a seeded
+    (clips, clips) relevancy matrix of graded values in [0, 1] with a 1 in
+    every row (not the identity), a permuted ``indexes.pkl`` and
+    ``fps_dict_256.pth`` at 30 fps."""
+    import pickle
+
+    import torch
+
+    rng = np.random.default_rng(SEED + 21)
+    meta, data = root / "meta", root / "data"
+    (meta / "retrieval_annotations").mkdir(parents=True, exist_ok=True)
+    (meta / "relevancy").mkdir(exist_ok=True)
+    videos = [(f"P0{i + 1}", f"P0{i + 1}_0{i + 1}") for i in range(EPIC_VIDEOS)]
+    fps = {}
+    for pid, vid in videos:
+        (data / pid).mkdir(parents=True, exist_ok=True)
+        np.save(data / pid / f"{vid}.MP4.npy",
+                rng.integers(0, 256, size=(EPIC_FRAMES, *EPIC_HW, 3), dtype=np.uint8))
+        fps[os.path.join(str(data), pid, f"{vid}.MP4")] = 30.0
+    torch.save(fps, meta / "fps_dict_256.pth")
+
+    def stamp(sec):
+        return f"00:00:{sec:05.2f}"
+
+    header = ("narration_id,participant_id,video_id,narration_timestamp,start_timestamp,stop_timestamp,"
+              "start_frame,stop_frame,narration")
+    rows, sentences = [header], ["narration_id,sentence"]
+    for i in range(EPIC_CLIPS):
+        pid, vid = videos[i % EPIC_VIDEOS]
+        start = round(float(rng.uniform(0, EPIC_FRAMES / 30 - 2.1)), 2)
+        stop = round(start + float(rng.uniform(0.5, 2.0)), 2)
+        text = f"{EPIC_VERBS[i % 8]} {EPIC_NOUNS[(i // 8) % 8]}"
+        rows.append(f"{vid}_{i},{pid},{vid},{stamp(start)},{stamp(start)},{stamp(stop)},"
+                    f"{int(start * 30)},{int(stop * 30)},{text}")
+        sentences.append(f"{vid}_{i},{text}")
+    (meta / "retrieval_annotations" / "EPIC_100_retrieval_test.csv").write_text("\n".join(rows) + "\n")
+    (meta / "retrieval_annotations" / "EPIC_100_retrieval_test_sentence.csv").write_text("\n".join(sentences) + "\n")
+    rel = np.round(rng.random((EPIC_CLIPS, EPIC_CLIPS)), 2) * (rng.random((EPIC_CLIPS, EPIC_CLIPS)) < 0.3)
+    rel[np.arange(EPIC_CLIPS), rng.permutation(EPIC_CLIPS)] = 1.0
+    with open(meta / "relevancy" / "caption_relevancy_EPIC_100_retrieval_test.pkl", "wb") as f:
+        pickle.dump(rel.astype(np.float32), f)
+    with open(meta / "indexes.pkl", "wb") as f:
+        pickle.dump(rng.permutation(EPIC_CLIPS), f)
+    return str(meta), str(data)
+
+
+def write_egtea_fixture(root: Path) -> tuple[str, str]:
+    """A synthetic EGTEA Gaze+ layout under ``root`` -> (meta_dir,
+    data_dir): the 106 action labels (``action_idx.txt``), a split-1 file
+    of ``len(EGTEA_LENGTHS)`` trimmed clips of seeded 256 x 342 frames as
+    ``<video>/<clip>.mp4.npy`` (some shorter than 16 x 2 frames, so the
+    dataset pads them), and ``egtea_video_list.pth.tar`` with their
+    lengths."""
+    import torch
+
+    rng = np.random.default_rng(SEED + 22)
+    meta, data = root / "meta", root / "data"
+    meta.mkdir(parents=True, exist_ok=True)
+    verbs = ("Open", "Close", "Take", "Put", "Cut", "Wash", "Pour", "Turn_on", "Move")
+    nouns = ("Drawer", "Fridge", "Plate", "Knife", "Onion", "Bowl", "Pan", "Cup", "Tomato", "Lettuce", "Oil",
+             "Faucet")
+    names = [f"{v}_{n}" for v in verbs for n in nouns][:EGTEA_LABELS]
+    (meta / "action_idx.txt").write_text("".join(f"{n} {i + 1}\n" for i, n in enumerate(names)))
+    lines, len_dict = [], {}
+    for i, n in enumerate(EGTEA_LENGTHS):
+        video = f"OP0{i % 4 + 1}-R0{i % 3 + 1}-PastaSalad"
+        clip = f"{video}-{1000 + i}"
+        (data / video).mkdir(parents=True, exist_ok=True)
+        np.save(data / video / f"{clip}.mp4.npy", rng.integers(0, 256, size=(n, *EGTEA_HW, 3), dtype=np.uint8))
+        len_dict[os.path.join(str(data), video, f"{clip}.mp4")] = n
+        lines.append(f"{clip} {int(rng.integers(1, EGTEA_LABELS + 1))} 0 0")
+    (meta / "test_split1.txt").write_text("\n".join(lines) + "\n")
+    torch.save({"len_dict": len_dict}, meta / "egtea_video_list.pth.tar")
+    return str(meta), str(data)
+
+
+class HarnessProbe:
+    """Observes one run of an eval CLI or harness without changing it: the
+    ``EvalModel`` that ``cli.common.build_eval_model`` returns (each of its
+    ``embed_video`` calls recorded: the embeddings, as rows, and the model
+    that made them), every cosine matrix the harness takes
+    (``train.evaluate._cos``), the wall time of the harness call
+    (``harness``, data decode included; None: no harness) and the time it
+    spent waiting for the next decoded item (``_prefetch_items``)."""
+
+    def __init__(self, harness: str | None):
+        self.harness = harness
+        self.model, self.embeddings, self.forward_models, self.sims = None, [], [], []
+        self.seconds = self.wait_s = 0.0
+
+    def watch(self, model):
+        real = model.embed_video
+
+        def embed_video(video_u8):
+            emb, boxes = real(video_u8)
+            self.embeddings.append(emb)
+            self.forward_models.append(model)
+            return emb, boxes
+
+        model.embed_video = embed_video
+        return model
+
+    def __enter__(self):
+        from helping_hand_for_egocentric_videos_torch.cli import common
+        from helping_hand_for_egocentric_videos_torch.train import evaluate
+
+        self._saved = [(common, "build_eval_model"), (evaluate, self.harness or "_cos"), (evaluate, "_cos"),
+                       (evaluate, "_prefetch_items")]
+        self._saved = [(mod, name, getattr(mod, name)) for mod, name in self._saved]
+        build, harness, cos, prefetch = (f for _, _, f in self._saved)
+
+        def build_eval_model(args):
+            model, lcfg, dcfg = build(args)
+            self.model = self.watch(model)
+            return model, lcfg, dcfg
+
+        def timed_harness(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return harness(*a, **kw)
+            finally:
+                self.seconds += time.perf_counter() - t0
+
+        def recorded_cos(a, b):
+            self.sims.append(cos(a, b))
+            return self.sims[-1]
+
+        def timed_prefetch(dataset, n, depth=16):
+            gen = prefetch(dataset, n, depth)
+            try:
+                while True:
+                    t0 = time.perf_counter()
+                    try:
+                        item = next(gen)
+                    except StopIteration:
+                        return
+                    finally:
+                        self.wait_s += time.perf_counter() - t0
+                    yield item
+            finally:
+                gen.close()
+
+        common.build_eval_model = build_eval_model
+        if self.harness:
+            setattr(evaluate, self.harness, timed_harness)
+        evaluate._cos = recorded_cos
+        evaluate._prefetch_items = timed_prefetch
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, f in reversed(self._saved):
+            setattr(mod, name, f)
+
+    def rows(self) -> np.ndarray:
+        return np.concatenate(self.embeddings)
+
+
+def _eval_cli(module, argv, harness: str | None, card) -> dict:
+    """``module.main(argv)`` with the launch counts set to 0 just before and
+    read just after, under a ``HarnessProbe``. Each video forward must
+    launch what ``launches_per_forward`` says for the model that ran it.
+    -> the run: what ``main`` returned, its ``--out`` results, launches,
+    forwards, rows embedded, harness seconds, clips/s, data-wait share,
+    peak memory, and the probe (model, embeddings, similarities)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with HarnessProbe(harness) as probe:
+        # ---- the main path: counts set to 0 just before, read just after
+        reset_counts()
+        returned = module.main(argv)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        # ----
+    forwards, rows = len(probe.embeddings), int(sum(len(e) for e in probe.embeddings))
+    want = dict.fromkeys(_counters(), 0)
+    for m in probe.forward_models:
+        for k, v in launches_per_forward(m).items():
+            want[k] += v
+    if forwards < 1 or launches != want:
+        raise AssertionError(f"{launches} launches for {forwards} forwards, want {want}")
+    run = {"returned": returned, "launches": launches, "forwards": forwards, "rows": rows,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card, "probe": probe}
+    if "--out" in argv:
+        run["results"] = json.loads(Path(argv[argv.index("--out") + 1]).read_text())
+    if harness:
+        run.update(harness_seconds=probe.seconds, clips_per_s=rows / probe.seconds,
+                   data_wait_share=probe.wait_s / probe.seconds)
+    return run
+
+
+def _summary(run: dict) -> dict:
+    return {k: v for k, v in run.items() if k not in ("probe", "returned")}
+
+
+def _f32_models(model):
+    """The f32 kernel route and the f32 plain attention on ``model``'s
+    weights and preprocessing: (kernel, plain)."""
+    import torch
+
+    from helping_hand_for_egocentric_videos_torch.train import EvalModel
+
+    lcfg = model.lavila_cfg
+    plain_cfg = replace(lcfg, visual=replace(lcfg.visual, attention_backend="reference"))
+    kw = dict(input_res=model.input_res, preprocess=model.preprocess, dtype=torch.float32, device=model.device)
+    return (EvalModel(model.backbone, lcfg, model.decoder, model.dec_cfg, model.tokenizer, **kw),
+            EvalModel(model.backbone, plain_cfg, model.decoder, model.dec_cfg, model.tokenizer, **kw))
+
+
+def _kernel_vs_plain_harness(model, harness: str, call, bf16_rows: np.ndarray) -> dict:
+    """``call(m)`` runs the harness on model m: with the f32 kernel route and
+    with the f32 plain attention on ``model``'s weights, every similarity
+    matrix the harness takes within ``SIM_ATOL`` absolute; ``bf16_rows``
+    (the bf16 kernel route's embeddings of the same clips, in order) against
+    the f32 plain ones with a cosine of at least 0.99 a row."""
+    import torch
+
+    k32, p32 = _f32_models(model)
+    res = {}
+    for name, m in (("kernel", k32), ("plain", p32)):
+        with HarnessProbe(harness) as probe:
+            probe.watch(m)
+            res[name] = call(m)
+        res[name + "_probe"] = probe
+    del k32, p32
+    torch.cuda.empty_cache()
+    ks, ps = res["kernel_probe"].sims, res["plain_probe"].sims
+    diff = max(float(np.abs(a - b).max()) for a, b in zip(ks, ps)) if len(ks) == len(ps) else np.inf
+    plain_rows = res["plain_probe"].rows()
+    cos = _cosine(bf16_rows[:len(plain_rows)], plain_rows)
+    check = {"f32_sims_max_abs_diff": diff, "sims_limit": SIM_ATOL, "sim_matrices": len(ks),
+             "f32_kernel_results": res["kernel"], "f32_plain_results": res["plain"],
+             "bf16_vs_f32_plain_min_cosine": float(cos.min()), "rows_compared": len(cos), "cosine_limit": 0.99}
+    if not (np.isfinite(plain_rows).all() and diff <= SIM_ATOL):
+        raise AssertionError(f"{harness}: f32 kernel route vs f32 plain similarities differ by {diff} > {SIM_ATOL}")
+    if not (cos >= 0.99).all():
+        raise AssertionError(f"{harness}: bf16 kernel route vs f32 plain, cosine {cos.min()} < 0.99")
+    return check
+
+
+def _in_range(results: dict, keys, lo, hi) -> bool:
+    return set(keys) <= set(results) and all(np.isfinite(results[k]) and lo <= results[k] <= hi for k in keys)
+
+
+def _eval_argv(ckpts, meta, data, out, backbone, device, *extra):
+    return ["--meta_dir", meta, "--data_dir", data, "--backbone", backbone, "--backbone_ckpt", ckpts[0],
+            "--decoder_ckpt", ckpts[1], "--device", device, "--out", str(out), *extra]
+
+
+def phase_eval_egomcq(card, ckpts, root: Path, device="cuda", backbone="timesformer_large"):
+    """"eval-egomcq": ``cli.test_egomcq.main`` on ``write_egoclip_fixture``'s
+    40 EgoMCQ items (4 frames, 5 clips an item, 4 items = 20 clips a
+    forward) from the reference-layout checkpoints. -> launches."""
+    from helping_hand_for_egocentric_videos_torch.cli import test_egomcq
+    from helping_hand_for_egocentric_videos_torch.data.egoclip import EgoClipConfig, EgoClipDataset
+    from helping_hand_for_egocentric_videos_torch.train import evaluate
+
+    meta, data = write_egoclip_fixture(root / "egoclip", rows=16, mcq=EVAL_MCQ)
+    argv = _eval_argv(ckpts, meta, data, root / "egomcq.json", backbone, device, "--out_sims",
+                      str(root / "egomcq_sims.npz"))
+    run = _eval_cli(test_egomcq, argv, "run_egomcq", card)
+    res = run["results"]
+    ok = (_in_range(res, ("Inter-video", "Intra-video"), 0, 100) and res["n_items"] == EVAL_MCQ
+          and run["forwards"] == -(-EVAL_MCQ // EVAL_MCQ_PER_FORWARD) and run["rows"] == 5 * EVAL_MCQ)
+    strict = EgoClipDataset(EgoClipConfig(meta_dir=meta, data_dir=data, split="val", num_frames=EVAL_MCQ_T,
+                                          loading="strict"))
+    check = _kernel_vs_plain_harness(run["probe"].model, "run_egomcq", lambda m: evaluate.run_egomcq(m, strict),
+                                     run["probe"].rows())
+    say("eval-egomcq", **_summary(run), frames=EVAL_MCQ_T, clips_per_forward=5 * EVAL_MCQ_PER_FORWARD, **check)
+    if not ok:
+        raise AssertionError(f"eval-egomcq: bad results or forwards: {_summary(run)}")
+    return run["launches"]
+
+
+def phase_eval_epic(card, ckpts, root: Path, device="cuda", backbone="timesformer_large"):
+    """"eval-epic": ``cli.test_epic.main`` on ``write_epic_fixture``'s layout
+    at 16 frames, ``--batch_size 8``, once in bf16 and once with ``--int8``
+    (the int8 embeddings against the bf16 ones with a cosine of at least
+    ``INT8_COS_FLOOR`` a clip). -> (launches of both runs, the layout's
+    (meta_dir, data_dir), the bf16 run's metrics)."""
+    import pickle
+
+    from helping_hand_for_egocentric_videos_torch.cli import test_epic
+    from helping_hand_for_egocentric_videos_torch.data.epic import EpicConfig, EpicMIRDataset
+    from helping_hand_for_egocentric_videos_torch.train import evaluate
+
+    meta, data = write_epic_fixture(root / "epic")
+    runs = {}
+    for int8 in (False, True):
+        tag = "int8" if int8 else "bf16"
+        argv = _eval_argv(ckpts, meta, data, root / f"epic_{tag}.json", backbone, device, "--num_frames",
+                          str(EPIC_T), "--batch_size", str(EPIC_BATCH), "--out_sims", str(root / f"epic_{tag}.npz"),
+                          *(["--int8"] if int8 else []))
+        runs[tag] = _eval_cli(test_epic, argv, "run_epic_mir", card)
+    keys = ("nDCG_VT", "nDCG_TV", "nDCG_AVG", "mAP_VT", "mAP_TV", "mAP_AVG")
+    ok = all(_in_range(r["results"], keys, 0, 1 + 1e-6) and r["forwards"] == -(-EPIC_CLIPS // EPIC_BATCH)
+             and r["rows"] == EPIC_CLIPS for r in runs.values())
+    cos8 = _cosine(runs["int8"]["probe"].rows(), runs["bf16"]["probe"].rows())
+    del runs["int8"]["probe"]
+    with open(Path(meta) / "relevancy" / "caption_relevancy_EPIC_100_retrieval_test.pkl", "rb") as f:
+        relevancy = pickle.load(f)
+    with open(Path(meta) / "indexes.pkl", "rb") as f:
+        indexes = np.asarray(pickle.load(f))
+    strict = EpicMIRDataset(EpicConfig(meta_dir=meta, data_dir=data, num_frames=EPIC_T, loading="strict"))
+    bf16 = runs["bf16"]
+    check = _kernel_vs_plain_harness(bf16["probe"].model, "run_epic_mir",
+                                     lambda m: evaluate.run_epic_mir(m, strict, relevancy, indexes,
+                                                                     batch_size=EPIC_BATCH), bf16["probe"].rows())
+    say("eval-epic", frames=EPIC_T, clips=EPIC_CLIPS, bf16=_summary(bf16), int8=_summary(runs["int8"]),
+        int8_vs_bf16_min_cosine=float(cos8.min()), int8_cosine_limit=INT8_COS_FLOOR, **check)
+    if not ok:
+        raise AssertionError("eval-epic: bad results or forwards (eval-epic line)")
+    if not (cos8 >= INT8_COS_FLOOR).all():
+        raise AssertionError(f"eval-epic: int8 vs bf16 embeddings, cosine {cos8.min()} < {INT8_COS_FLOOR}")
+    launches = {k: bf16["launches"][k] + runs["int8"]["launches"][k] for k in _counters()}
+    return launches, (meta, data), bf16["results"]
+
+
+def phase_eval_egtea(card, ckpts, root: Path, device="cuda", backbone="timesformer_large"):
+    """"eval-egtea": ``cli.test_egtea.main`` on ``write_egtea_fixture``'s
+    split 1, 10 clips of 16 frames at stride 2, with ``--spatial_crops 1``
+    (10 clips a forward) and then ``--spatial_crops 6`` (60). The f32
+    comparison runs the 6-crop model on the first ``EGTEA_F32_VIDEOS``
+    videos (a padded one first). -> launches of both runs."""
+    from helping_hand_for_egocentric_videos_torch.cli import test_egtea
+    from helping_hand_for_egocentric_videos_torch.data.egtea import EgteaConfig, EgteaDataset, generate_label_map
+    from helping_hand_for_egocentric_videos_torch.train import evaluate
+
+    meta, data = write_egtea_fixture(root / "egtea")
+    runs = {}
+    for crops in (1, 6):
+        argv = _eval_argv(ckpts, meta, data, root / f"egtea_{crops}.json", backbone, device, "--num_frames",
+                          str(EGTEA_T), "--num_clips", str(EGTEA_CLIPS), "--clip_stride", str(EGTEA_STRIDE),
+                          "--splits", "1", "--spatial_crops", str(crops))
+        runs[crops] = _eval_cli(test_egtea, argv, "run_egtea", card)
+    n = len(EGTEA_LENGTHS)
+    ok = all(_in_range(r["results"], ("mean_class_acc", "top1"), 0, 100) and r["forwards"] == n
+             and r["rows"] == n * EGTEA_CLIPS * crops for crops, r in runs.items())
+    labels, _ = generate_label_map(os.path.join(meta, "action_idx.txt"))
+    ds = EgteaDataset(EgteaConfig(root=data, metadata=os.path.join(meta, "test_split1.txt"), anno_dir=meta,
+                                  num_clips=EGTEA_CLIPS, clip_length=EGTEA_T, clip_stride=EGTEA_STRIDE))
+    ds.samples = ds.samples[:EGTEA_F32_VIDEOS]
+    six = runs[6]
+    check = _kernel_vs_plain_harness(six["probe"].model, "run_egtea", lambda m: evaluate.run_egtea(m, ds, labels),
+                                     six["probe"].rows())
+    del runs[1]["probe"]
+    say("eval-egtea", frames=EGTEA_T, videos=n, video_frames=list(EGTEA_LENGTHS), labels=len(labels),
+        crops1=_summary(runs[1]), crops6=_summary(six), f32_videos=EGTEA_F32_VIDEOS, **check)
+    if not ok:
+        raise AssertionError("eval-egtea: bad results or forwards (eval-egtea line)")
+    return {k: runs[1]["launches"][k] + six["launches"][k] for k in _counters()}
+
+
+def phase_eval_tools(card, ckpts, epic, epic_results: dict, root: Path, device="cuda",
+                     backbone="timesformer_large"):
+    """"eval-tools": ``cli.extract_features.main`` over the EPIC layout's
+    videos (16-frame windows every 0.5 s, 8 a forward: one ``.features.npz``
+    a video, features finite, the windows ``iter_windows`` gives), then
+    ``cli.parity_check.main`` on that layout with ``--int8_diff`` and a
+    target table of "eval-epic"'s bf16 metrics at ``--tol 0.01``: the same
+    weights and data must give the same metrics (every target passes), the
+    int8 rank-stability figures must be there (random weights may leave
+    near-ties, so their verdict is printed, not required), ``certified``
+    must follow from both, and the report must name the backend and the
+    card. -> launches of both runs."""
+    import torch
+
+    from helping_hand_for_egocentric_videos_torch.cli import extract_features, parity_check
+    from helping_hand_for_egocentric_videos_torch.data.video import _maybe_npy
+
+    meta, data = epic
+    model_args = ["--backbone", backbone, "--backbone_ckpt", ckpts[0], "--decoder_ckpt", ckpts[1], "--device", device]
+    feats = root / "features"
+    fx = _eval_cli(extract_features, [*model_args, "--data_dir", data, "--out_dir", str(feats), "--pattern",
+                                      "**/*.MP4*", "--num_frames", str(EPIC_T), "--stride_sec", "0.5"], None, card)
+    files = sorted(feats.glob("*.features.npz"))
+    windows = []
+    for f in files:
+        z = np.load(f)
+        want = extract_features.iter_windows(len(_maybe_npy(str(z["path"]))), 30.0, EPIC_T, 0.5)
+        windows.append(len(want))
+        if not (z["features"].shape == (len(want), 256) and np.isfinite(z["features"]).all()
+                and np.allclose(z["starts"], np.asarray(want, np.float32) / 30.0)):
+            raise AssertionError(f"eval-tools: bad features in {f.name}: {z['features'].shape}")
+    if len(files) != EPIC_VIDEOS or fx["rows"] != sum(windows):
+        raise AssertionError(f"eval-tools: {len(files)} feature files of {fx['rows']} windows")
+    targets = root / "targets.json"
+    targets.write_text(json.dumps({f"epic.{k}": v for k, v in epic_results.items()}))
+    rep = _eval_cli(parity_check, [*model_args, "--epic_meta", meta, "--epic_data", data, "--int8_diff", "--targets",
+                                   str(targets), "--tol", "0.01", "--out_dir", str(root / "parity")], None, card)
+    report = rep["returned"]
+    name = torch.cuda.get_device_name(0) if torch.device(device).type == "cuda" else "cpu"
+    gate, agree = report["gate"], report["int8_agreement"].get("epic", {})
+    ok = (report["backend"] == "torch" and report["device"] == name
+          and set(gate) == {f"epic.{k}" for k in epic_results} and all(g["pass"] for g in gate.values())
+          and np.isfinite([agree.get("argmax_agreement", np.nan), agree.get("spearman", np.nan)]).all()
+          and report["certified"] is agree["pass"] and rep["forwards"] == 2 * -(-EPIC_CLIPS // EPIC_BATCH))
+    say("eval-tools", extract_features={**_summary(fx), "files": len(files), "windows": windows},
+        parity_check={**_summary(rep), "gate": report["gate"], "int8_agreement": report["int8_agreement"],
+                      "certified": report["certified"], "device": report["device"]})
+    if not ok:
+        raise AssertionError("eval-tools: parity_check's report is not what the same weights and data give")
+    return {k: fx["launches"][k] + rep["launches"][k] for k in _counters()}
+
+
+def phase_eval(card, device="cuda", backbone="timesformer_large") -> dict:
+    """The eval phases on one pair of reference-layout checkpoints (full
+    width, 4 frames), written under ``build/``. -> their launches."""
+    import gc
+
+    import torch
+
+    root = BUILD / "chip_smoke_eval"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    try:
+        bpath, dpath, model, decoder, write_s = write_reference_checkpoints(root, device, SEED + 20, backbone)
+        del model, decoder
+        gc.collect()
+        torch.cuda.empty_cache()
+        say("eval-checkpoints", checkpoint_frames=CKPT_T, write_seconds=write_s)
+        ckpts = (bpath, dpath)
+        launches = [phase_eval_egomcq(card, ckpts, root, device, backbone)]
+        epic_launches, epic, epic_results = phase_eval_epic(card, ckpts, root, device, backbone)
+        launches.append(epic_launches)
+        for phase in (phase_eval_egtea, partial(phase_eval_tools, epic=epic, epic_results=epic_results)):
+            gc.collect()
+            torch.cuda.empty_cache()
+            launches.append(phase(card, ckpts, root=root, device=device, backbone=backbone))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {k: sum(r[k] for r in launches) for k in _counters()}
+
+
 def main():
     name, card = phase_device()
     import torch
@@ -1886,6 +2402,7 @@ def main():
     phase_end_to_end_int8(long8, long16, "cuda", phase="end-to-end-long-int8")
     del long16, long8
     torch.cuda.empty_cache()
+    launches_eval = phase_eval(card)
     launches_train, train_shape, _ = phase_train(card, peaks)
     for mode in ("space", "time"):
         report[mode]["train_shape"] = train_shape[mode]
@@ -1901,9 +2418,9 @@ def main():
     launches_dist = phase_train_loop_dist(card, fixture, loop_root, ref_losses)
     shutil.rmtree(loop_root, ignore_errors=True)
     # launches on the main path: the serving runs at 16 and at 128 frames, bf16
-    # and int8, the train steps and the training loops
-    total = {k: launches[k] + launches8[k] + launches_long[k] + launches_train[k] + launches_loop[k]
-             + launches_loop8[k] + launches_dist[k] for k in _counters()}
+    # and int8, the eval CLIs, the train steps and the training loops
+    total = {k: launches[k] + launches8[k] + launches_long[k] + launches_eval[k] + launches_train[k]
+             + launches_loop[k] + launches_loop8[k] + launches_dist[k] for k in _counters()}
     counts = {
         "space": total["divided_attention_space"], "time": total["divided_attention_time"],
         "space_int8": total["divided_attention_space_int8"], "time_int8": total["divided_attention_time_int8"],

@@ -1,16 +1,19 @@
 """Shared CLI helpers.
 
 Counterpart of ``helping_hand_for_egocentric_videos_tpu/cli/common.py``:
-the eval CLIs' arguments and the model they build, the process group of a
-``torchrun`` launch, and the environment line. The port's CLIs run on the
-CUDA device unless given ``--device cpu``.
+the eval CLIs' arguments and the model they build, their progress and
+results lines, the process group of a ``torchrun`` launch, and the
+environment line. The port's CLIs run on the CUDA device unless given
+``--device cpu``.
 """
 
 from __future__ import annotations
 
+import json
+
 import torch
 
-__all__ = ["add_eval_args", "build_eval_model", "maybe_init_distributed", "print_env"]
+__all__ = ["add_eval_args", "build_eval_model", "dump", "maybe_init_distributed", "print_env", "progress"]
 
 
 def maybe_init_distributed(device="cuda"):
@@ -77,13 +80,16 @@ def build_eval_model(args):
 
 
 def add_eval_args(p):
-    """The model options of the eval CLIs (the JAX package's data and
-    results-file options come with the eval harnesses that read them)."""
+    """The data, model and results options of the eval CLIs, and the
+    device they run on."""
+    p.add_argument("--meta_dir", required=False, default="data")
+    p.add_argument("--data_dir", required=False, default="./")
     p.add_argument("--backbone", default="timesformer_large")
     p.add_argument("--backbone_ckpt", default="")
     p.add_argument("--decoder_ckpt", default="")
     p.add_argument("--num_frames", type=int, default=16)
     p.add_argument("--num_queries", type=int, default=12)
+    p.add_argument("--out", default="", help="optional path to dump results json")
     p.add_argument("--device", default="cuda",
                    help="torch device of the model (default: the CUDA device; 'cpu' runs the "
                    "kernels' plain versions)")
@@ -102,3 +108,14 @@ def add_eval_args(p):
         "exceeds the threshold (models/quant.py)",
     )
     return p
+
+
+def progress(i: int, n: int):
+    print(f"  {i}/{n}", flush=True)
+
+
+def dump(results: dict, out: str):
+    print(json.dumps(results, indent=2))
+    if out:
+        with open(out, "w") as f:
+            json.dump(results, f, indent=2)

@@ -6,7 +6,7 @@ from .divided_attention import (
     needs_head_grid,
     time_attention_headgrid_ref,
 )
-from .preprocess import resize_normalize, shortside_centercrop_normalize, shortside_dims
+from .preprocess import resize_normalize, shortside_centercrop_normalize, shortside_dims, spatial_crops
 
 __all__ = [
     "layer_norm_int8",
@@ -21,4 +21,5 @@ __all__ = [
     "resize_normalize",
     "shortside_centercrop_normalize",
     "shortside_dims",
+    "spatial_crops",
 ]

@@ -65,6 +65,8 @@ __all__ = [
 
 _MODES = ("space", "time")
 MAX_HEADGRID_T = 256  # K6 stages a tube's keys and values in shared memory
+# the f32 route launches one block row a group in gridDim.z (csrc/divided_attention.cu)
+MAX_F32_GROUPS = 65535
 
 # the TPU's scoped-VMEM budget, as the JAX package states it (module docstring)
 _VMEM_LIMIT = 100 * 1024 * 1024
@@ -205,9 +207,23 @@ def _check_cuda_args(qkv, cls_k, cls_v, cls_q, heads: int):
     return dh
 
 
+def check_f32_groups(b: int, t: int, n: int, mode: str):
+    """Refuse a batch whose groups (B x T frames in space mode, B x N tubes
+    in time mode) overflow the f32 route's grid, before the launch would."""
+    groups = b * (t if mode == "space" else n)
+    if groups > MAX_F32_GROUPS:
+        unit = "frames" if mode == "space" else "patch tubes"
+        raise ValueError(
+            f"the f32 {mode} kernel takes at most {MAX_F32_GROUPS} groups (B x {unit}), got {b} x "
+            f"{groups // b} = {groups}: split the batch into at most {MAX_F32_GROUPS // (groups // b)} clips"
+        )
+
+
 def _launch_kernel(qkv, cls_k, cls_v, cls_q, mode: str, heads: int, quant_out: bool):
     dh = _check_cuda_args(qkv, cls_k, cls_v, cls_q, heads)
     b, t, n, d3 = qkv.shape
+    if qkv.dtype == torch.float32:
+        check_f32_groups(b, t, n, mode)
     d = d3 // 3
     g = t if mode == "space" else n
     dev = qkv.device

@@ -6,6 +6,9 @@ Counterpart of ``helping_hand_for_egocentric_videos_tpu/ops/preprocess.py``:
 - ``resize_normalize``: Resize((res, res)) + Normalize.
 - ``shortside_centercrop_normalize``: Resize(short side) -> CenterCrop ->
   Resize(res) -> Normalize.
+- ``spatial_crops``: the multi-crop TTA of the EGTEA harness (1, 3 or 6
+  crops after a shorter-side resize), and the ``center_plus_*`` crop
+  helpers (slicing on a channel-last image).
 - ``random_resized_crop_flip_jitter`` and ``transform_boxes``: the
   reference's train pipeline with augmentation on (section below).
 
@@ -26,11 +29,14 @@ __all__ = [
     "LAVILA_STD",
     "apply_augment",
     "augment_rows",
+    "center_plus_four_crops",
+    "center_plus_twohori_crops",
     "random_resized_crop_flip_jitter",
     "resize_normalize",
     "sample_augment_params",
     "shortside_centercrop_normalize",
     "shortside_dims",
+    "spatial_crops",
     "transform_boxes",
 ]
 
@@ -87,6 +93,85 @@ def shortside_centercrop_normalize(
     if short != res:
         x = _resize(x, (res, res))
     return _norm(x, mean, std)
+
+
+def spatial_crops(video_u8, crop: int = 224, num_crops: int = 1, short: int = 224, mean=LAVILA_MEAN,
+                  std=LAVILA_STD, dtype=torch.float32):
+    """LaviLa-style SpatialCrop: shorter-side resize to ``short``, then 1
+    (center), 3 (left / center / right along the longer axis) or 6 (the 3
+    crops, then the same 3 of the horizontally flipped clip) crops of
+    ``crop`` x ``crop`` (the reference's data_loader/lavila_transforms.py:
+    121-186). (..., H, W, C) uint8 -> (num_crops, ..., crop, crop, C)
+    normalised float, crop-major."""
+    h, w = video_u8.shape[-3:-1]
+    x = video_u8.to(dtype) / 255.0
+    nh, nw = shortside_dims(h, w, short)
+    x = _resize(x, (nh, nw))
+    if num_crops == 1:
+        offs = [((nh - crop) // 2, (nw - crop) // 2)]
+    elif num_crops in (3, 6):
+        if nw >= nh:  # wide: left / center / right
+            offs = [((nh - crop) // 2, 0), ((nh - crop) // 2, (nw - crop) // 2), ((nh - crop) // 2, nw - crop)]
+        else:  # tall: top / center / bottom
+            offs = [(0, (nw - crop) // 2), ((nh - crop) // 2, (nw - crop) // 2), (nh - crop, (nw - crop) // 2)]
+    else:
+        raise ValueError("num_crops must be 1, 3 or 6")
+    sources = [x] if num_crops < 6 else [x, x.flip(-2)]
+    crops = [src[..., t:t + crop, l:l + crop, :] for src in sources for t, l in offs]
+    return _norm(torch.stack(crops), mean, std)
+
+
+def _center_crop(x, ch: int, cw: int):
+    h, w = x.shape[-3:-1]
+    top, left = (h - ch) // 2, (w - cw) // 2
+    return x[..., top:top + ch, left:left + cw, :]
+
+
+def center_plus_four_crops(img, size, margin_h: int, margin_w: int):
+    """Four tiled border crops + the center crop (the reference's
+    utils/custom_transforms.py:18-83): (tl, tr, bl, br, center) of a
+    channel-last (..., H, W, C) image. The borders tile the frame of
+    ``margin`` thickness around the central (h, w) crop: tl and br are
+    horizontal strips spanning margin + crop, tr and bl vertical ones."""
+    ch, cw = (size, size) if isinstance(size, int) else tuple(size)
+    h, w = img.shape[-3:-1]
+    if cw > w or ch > h:
+        raise ValueError(f"crop {size} larger than image {(h, w)}")
+    if cw + margin_w > w or ch + margin_h > h:
+        raise ValueError(f"margin {(margin_h, margin_w)} + crop {size} exceeds image {(h, w)}")
+    x11 = (w - cw - 2 * margin_w) // 2
+    x12 = x11 + margin_w
+    x21 = x12 + cw
+    y11 = (h - ch - 2 * margin_h) // 2
+    y12 = y11 + margin_h
+    y21 = y12 + ch
+
+    def crop(top, left, hh, ww):
+        return img[..., top:top + hh, left:left + ww, :]
+
+    tl = crop(y11, x11, margin_h, margin_w + cw)
+    tr = crop(y11, x21, margin_h + ch, margin_w)
+    bl = crop(y12, x11, margin_h + ch, margin_w)
+    br = crop(y21, x12, margin_h, margin_w + cw)
+    return tl, tr, bl, br, _center_crop(img, ch, cw)
+
+
+def center_plus_twohori_crops(img, size, margin_w: int):
+    """Left / right border crops + the center crop (the reference's
+    utils/custom_transforms.py:68-106): (left, right, center) of a
+    channel-last image."""
+    ch, cw = (size, size) if isinstance(size, int) else tuple(size)
+    h, w = img.shape[-3:-1]
+    if cw > w or ch > h:
+        raise ValueError(f"crop {size} larger than image {(h, w)}")
+    if cw + margin_w > w:
+        raise ValueError(f"margin {margin_w} + crop {size} exceeds image width {w}")
+    x11 = (w - cw - 2 * margin_w) // 2
+    x21 = x11 + margin_w + cw
+    y11 = (h - ch) // 2
+    left = img[..., y11:y11 + ch, x11:x11 + margin_w, :]
+    right = img[..., y11:y11 + ch, x21:x21 + margin_w, :]
+    return left, right, _center_crop(img, ch, cw)
 
 
 # --------------------------------------------------------------------------

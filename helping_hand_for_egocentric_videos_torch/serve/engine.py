@@ -90,6 +90,11 @@ class ServingEngine:
     """
 
     def __init__(self, model, video_shape: tuple, cfg: ServeConfig = ServeConfig()):
+        if str(getattr(model, "preprocess", "resize")).startswith("crops"):
+            # multi-crop TTA returns crop-major (k*B, E) rows — items are
+            # not contiguous, so per-request splitting is undefined (the
+            # eval harnesses reject it the same way)
+            raise ValueError("multi-crop TTA preprocess is not servable")
         self.model = model
         self.cfg = cfg
         self.video_shape = tuple(video_shape)

@@ -1,4 +1,4 @@
-from .evaluate import EvalModel, run_egomcq
+from .evaluate import EvalModel, run_egomcq, run_egtea, run_epic_mir
 from .step import (
     TrainConfig,
     TrainState,
@@ -17,4 +17,6 @@ __all__ = [
     "make_train_step",
     "pretrain_loss_and_metrics",
     "run_egomcq",
+    "run_egtea",
+    "run_epic_mir",
 ]

@@ -1,21 +1,29 @@
-"""Zero-shot embedding model and the EgoMCQ harness.
+"""Zero-shot evaluation: the embedding model and the three harnesses.
 
-Counterpart of ``EvalModel``, ``_prefetch_items`` and ``run_egomcq`` in
-``helping_hand_for_egocentric_videos_tpu/train/evaluate.py``:
+Counterpart of ``helping_hand_for_egocentric_videos_tpu/train/evaluate.py``
+(the reference's run/test_EgoMCQ.py, run/test_epic.py and
+run/test_egtea.py):
 - text embed = txt_proj(text feature map at the EOT token);
 - video embed = obj_proj(hs[-1])[:, -1] of the object decoder over the
   visual tower's patch grid, plus the decoder's predicted boxes;
-- EgoMCQ (the reference's run/test_EgoMCQ.py:25-135): a query text
-  against 5 candidate clips an item, accuracy split by question type.
-  The pretraining loop runs it online. The Epic-Kitchens and EGTEA
-  harnesses are not ported yet (ROADMAP.md queue A item 9).
+- EgoMCQ (test_EgoMCQ.py:25-135): a query text against 5 candidate clips
+  an item, accuracy split by question type. The pretraining loop also
+  runs it online.
+- Epic-Kitchens MIR (test_epic.py:187-283): sim = cosine(text, video),
+  post-processed to ((sim+1)/2).T[:, indexes]; nDCG and mAP in both
+  directions, averaged.
+- EGTEA (test_egtea.py:211-265): the 106 label narrations embedded once;
+  per video ``num_clips`` windows (times the spatial crops), logits
+  max-pooled over those rows; mean-class accuracy and top-1.
 
-The visual tower runs in ``dtype`` (bf16 by default) with its divided
-attention in the CUDA kernel; the text tower and the decoder run in f32
-on the tower's f32 output. uint8 clips are preprocessed on the device.
-``int8=True`` quantizes the visual tower's block matmuls
-(``models/quant.py``; the int8 kernels K3, K4 and K5 on its patch stream),
-with the per-block float fallback above ``int8_fallback``.
+Clips go to the device in batches (the reference loops bs=1), uint8
+frames are preprocessed on the device, and the similarity and metric
+math runs on the host as the reference computes it. The visual tower
+runs in ``dtype`` (bf16 by default) with its divided attention in the
+CUDA kernel; the text tower and the decoder run in f32 on the tower's
+f32 output. ``int8=True`` quantizes the visual tower's block matmuls
+(``models/quant.py``; the int8 kernels K3, K4 and K5 on its patch
+stream), with the per-block float fallback above ``int8_fallback``.
 """
 
 from __future__ import annotations
@@ -24,18 +32,19 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..metrics import egomcq_accuracy_metrics
+from ..metrics import calculate_mAP, calculate_nDCG, egomcq_accuracy_metrics, mean_class_accuracy
+from ..metrics.ndcg import calculate_IDCG, calculate_k_counts
 from ..metrics.sim import sim_matrix
 from ..models.clip_text import encode_text
 from ..models.lavila import Lavila, LavilaConfig
 from ..models.obj_decoder import DecoderConfig, ObjDecoder, decoder_forward, obj_proj, txt_proj
 from ..models.quant import cast_floats, quantize_lavila_params
 from ..models.spacetime_vit import spacetime_forward
-from ..ops.preprocess import resize_normalize, shortside_centercrop_normalize
+from ..ops.preprocess import resize_normalize, shortside_centercrop_normalize, spatial_crops
 
-__all__ = ["EvalModel", "run_egomcq"]
+__all__ = ["EvalModel", "run_egomcq", "run_epic_mir", "run_egtea"]
 
-_PREPROCESS = ("resize", "shortside")
+_PREPROCESS = ("resize", "shortside", "crops3", "crops6")
 
 
 class EvalModel:
@@ -48,6 +57,12 @@ class EvalModel:
     quantized from its f32 weights; ``int8_fallback``: the gamma-spread
     threshold above which a block keeps its float matmuls (None: every
     block is int8). The weight scales stay f32 in the ``dtype`` copy.
+
+    ``preprocess``: 'resize' (squash), 'shortside' (EGTEA's one crop), or
+    'crops3' / 'crops6' (LaviLa's SpatialCrop multi-crop TTA): then B clips
+    embed to k*B rows, crop-major (row ``c * B + i`` is crop c of clip i),
+    and only ``run_egtea``'s max-pool over rows takes them
+    (run/test_egtea.py:245-246).
     """
 
     def __init__(
@@ -59,7 +74,7 @@ class EvalModel:
         tokenizer,
         *,
         input_res: int = 224,
-        preprocess: str = "resize",  # 'resize' (squash) | 'shortside' (EGTEA 1-crop)
+        preprocess: str = "resize",
         dtype=torch.bfloat16,
         device=None,
         int8: bool = False,
@@ -97,11 +112,16 @@ class EvalModel:
             return emb.cpu().numpy()
 
     def embed_video(self, video_u8: np.ndarray):
-        """(B, T, H, W, C) uint8 -> ((B, E) f32 embeddings, predicted boxes)."""
+        """(B, T, H, W, C) uint8 -> ((B, E) f32 embeddings, predicted boxes);
+        (k*B, E) and (k*B, Q, 4), crop-major, under 'crops<k>'."""
         with torch.inference_mode():
             v = torch.as_tensor(np.asarray(video_u8), device=self.device)
             if self.preprocess == "resize":
                 video = resize_normalize(v, self.input_res)
+            elif self.preprocess.startswith("crops"):
+                video = spatial_crops(v, crop=self.input_res, num_crops=int(self.preprocess[5:]),
+                                      short=self.input_res)
+                video = video.reshape((-1,) + video.shape[2:])
             else:
                 video = shortside_centercrop_normalize(v, res=self.input_res)
             _, fmap = spacetime_forward(self.visual, self.lavila_cfg.visual, video, dtype=self.dtype)
@@ -166,10 +186,14 @@ def _prefetch_items(dataset, n: int, depth: int = 16):
 
 
 def _reject_multicrop(model):
-    """The JAX harness refuses a multi-crop model here (its embeddings come
-    back crop-major); the port's ``EvalModel`` has no multi-crop mode yet
-    (ROADMAP.md queue A item 10), so there is nothing to refuse. The check
-    comes back with that mode."""
+    """crops3/6 preprocess returns crop-major (k*B, E) embeddings; only
+    run_egtea's row max-pool is shape-agnostic to that."""
+    if getattr(model, "preprocess", "").startswith("crops"):
+        raise ValueError(
+            "multi-crop preprocess returns crop-major (k*B, E) embeddings; "
+            "only run_egtea's row max-pool supports it (use preprocess="
+            "'resize' here)"
+        )
 
 
 def run_egomcq(model: EvalModel, dataset, limit: int | None = None, progress=None, items_per_batch: int = 4,
@@ -214,3 +238,78 @@ def run_egomcq(model: EvalModel, dataset, limit: int | None = None, progress=Non
     metrics = egomcq_accuracy_metrics(preds, np.asarray(gts), np.asarray(types))
     metrics["n_items"] = n
     return metrics
+
+
+def run_epic_mir(model: EvalModel, dataset, relevancy: np.ndarray, indexes: np.ndarray, batch_size: int = 8,
+                 progress=None, out_sims: str | None = None):
+    """-> dict of mAP/nDCG (VT/TV/AVG). ``relevancy``/``indexes`` are the
+    EPIC relevancy matrix and caption column re-index (test_epic.py:99-101).
+    ``out_sims`` dumps an .npz with the raw text x video cosine matrix
+    (pre-postprocessing, what the reference torch.saves at
+    run/test_epic.py:263-265) plus the re-indexed matrix fed to nDCG/mAP."""
+    _reject_multicrop(model)
+    text_embeds, vid_embeds = [], []
+    n = len(dataset)
+    buf_v, buf_t = [], []
+
+    def flush():
+        if not buf_v:
+            return
+        emb, _ = model.embed_video(np.stack(buf_v))
+        vid_embeds.append(emb)
+        text_embeds.append(model.embed_text(list(buf_t)))
+        buf_v.clear()
+        buf_t.clear()
+
+    for i, item in enumerate(_prefetch_items(dataset, n, depth=4 * batch_size)):
+        buf_v.append(item["video"])
+        buf_t.append(item["text"])
+        if len(buf_v) == batch_size:
+            flush()
+        if progress and i % 100 == 0:
+            progress(i, n)
+    flush()
+
+    sim = _cos(np.concatenate(text_embeds), np.concatenate(vid_embeds))  # (n_caps, n_vids)
+    raw_sim = sim
+    sim = ((sim + 1) / 2).T[:, indexes]  # (n_vids, n_caps_selected)
+    if out_sims:
+        np.savez(out_sims, pred=raw_sim, processed=sim)
+    k_v = calculate_k_counts(relevancy)
+    idcg_v = calculate_IDCG(relevancy, k_v)
+    k_t = calculate_k_counts(relevancy.T)
+    idcg_t = calculate_IDCG(relevancy.T, k_t)
+    vis_nDCG = calculate_nDCG(sim, relevancy, k_v, IDCG=idcg_v)
+    txt_nDCG = calculate_nDCG(sim.T, relevancy.T, k_t, IDCG=idcg_t)
+    vis_mAP = calculate_mAP(sim, relevancy)
+    txt_mAP = calculate_mAP(sim.T, relevancy.T)
+    return {
+        "nDCG_VT": float(vis_nDCG),
+        "nDCG_TV": float(txt_nDCG),
+        "nDCG_AVG": float((vis_nDCG + txt_nDCG) / 2),
+        "mAP_VT": float(vis_mAP),
+        "mAP_TV": float(txt_mAP),
+        "mAP_AVG": float((vis_mAP + txt_mAP) / 2),
+    }
+
+
+def run_egtea(model: EvalModel, dataset, labels: list[str], progress=None):
+    """-> {'mean_class_acc': %, 'top1': %}. ``labels`` = 106 narrations.
+    Each item's frames are cut into windows of the decoder's frame count;
+    the logits of all its rows (windows x crops) are max-pooled before the
+    argmax."""
+    label_embeds = model.embed_text(labels)
+    preds, gts = [], []
+    label_to_idx = {l: i for i, l in enumerate(labels)}
+    n = len(dataset)
+    for i, item in enumerate(_prefetch_items(dataset, n, depth=4)):
+        frames = item["video"]  # (num_clips*clip_length, H, W, C)
+        clips = frames.reshape(-1, model.dec_cfg.num_frames, *frames.shape[1:])
+        emb, _ = model.embed_video(clips)  # (k*num_clips, E)
+        logits = _cos(emb, label_embeds)  # (k*num_clips, C)
+        preds.append(int(np.argmax(logits.max(axis=0))))
+        gts.append(label_to_idx[item["label_text"]])
+        if progress and i % 50 == 0:
+            progress(i, n)
+    mca, top1 = mean_class_accuracy(np.asarray(preds), np.asarray(gts), len(labels))
+    return {"mean_class_acc": mca, "top1": top1}

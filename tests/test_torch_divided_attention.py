@@ -551,3 +551,61 @@ def test_cuda_kernel_refuses_inputs_that_require_grad(cuda_device, head_grid):
         da.divided_patch_attention(qkv.detach(), ck.requires_grad_(), cv, cq, **kw)
     with torch.no_grad():
         da.divided_patch_attention(qkv, ck, cv, cq, **kw)
+
+
+# the zero-shot harnesses' batches (clips, frames) at TimeSformer-L widths: EgoMCQ 4 items x 5
+# clips of 4 frames; EGTEA 10 windows of 16 frames, and times 6 crops (60 x 256 = 15360 tubes
+# in the f32 route's grid)
+HARNESS_SHAPES = [(20, 4), (10, 16), (60, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", HARNESS_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("mode", ["space", "time"])
+def test_cuda_kernel_matches_plain_at_harness_shapes(cuda_device, mode, shape, dtype):
+    """K1 and K2 at the eval harnesses' batches, N = 256, H = 16, dh = 64:
+    the patch output at the card's tolerances (f32 1e-4, bf16 2e-2), the
+    merged CLS output at 1e-4, one launch counted."""
+    b, t = shape
+    dt = getattr(torch, dtype)
+    qkv, ck, cv, cq = _tiling_inputs((b, t, 256, 16, 64), dt, cuda_device, seed=5)
+    attr = f"launches_{mode}"
+    before = getattr(da.divided_patch_attention, attr)
+    out, parts = da.divided_patch_attention(qkv, ck, cv, cq, mode=mode, heads=16)
+    assert getattr(da.divided_patch_attention, attr) == before + 1
+    cls = da.merge_cls_partials(*parts, cq, ck, cv, 16)
+    want, want_parts = da.divided_patch_attention_ref(qkv, ck, cv, cq, mode=mode, heads=16)
+    want_cls = da.merge_cls_partials(*want_parts, cq, ck, cv, 16)
+    torch.cuda.synchronize()
+    atol = 1e-4 if dt == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=atol)
+    torch.testing.assert_close(cls, want_cls, rtol=0, atol=1e-4)
+
+
+def test_f32_route_refuses_a_grid_beyond_its_limit():
+    """The f32 route holds a group a grid row (gridDim.z <= 65535): the
+    wrapper refuses a larger batch with the clips that would fit, before
+    any launch. 60 crops x 256 tubes (EGTEA's 6-crop batch) fits."""
+    da.check_f32_groups(60, 16, 256, "time")
+    da.check_f32_groups(255, 16, 256, "time")
+    da.check_f32_groups(4095, 16, 256, "space")
+    with pytest.raises(ValueError, match=r"at most 65535 groups \(B x patch tubes\), got 256 x 256 = 65536: "
+                                         r"split the batch into at most 255 clips"):
+        da.check_f32_groups(256, 16, 256, "time")
+    with pytest.raises(ValueError, match=r"B x frames\), got 4096 x 16 = 65536"):
+        da.check_f32_groups(4096, 16, 256, "space")
+
+
+@pytest.mark.cuda
+def test_cuda_wrapper_refuses_a_grid_beyond_its_limit(cuda_device):
+    """On the card the f32 wrapper refuses 256 clips x 256 tubes before the
+    launch (no launch counted); bf16 has no such limit."""
+    qkv, ck, cv, cq = _tiling_inputs((256, 2, 256, 1, 64), torch.float32, cuda_device, seed=6)
+    before = da.divided_patch_attention.launches_time
+    with pytest.raises(ValueError, match="at most 65535 groups"):
+        da.divided_patch_attention(qkv, ck, cv, cq, mode="time", heads=1)
+    assert da.divided_patch_attention.launches_time == before
+    out, _ = da.divided_patch_attention(*(z.to(torch.bfloat16) for z in (qkv, ck, cv, cq)), mode="time", heads=1)
+    torch.cuda.synchronize()
+    assert da.divided_patch_attention.launches_time == before + 1 and torch.isfinite(out.float()).all()

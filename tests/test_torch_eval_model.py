@@ -120,4 +120,4 @@ def test_eval_model_rejects_unknown_preprocess(models):
     _, port = models["resize"]
     with pytest.raises(ValueError, match="preprocess"):
         EvalModel(port.backbone, port.lavila_cfg, port.decoder, port.dec_cfg, ClipTokenizer(),
-                  preprocess="crops3", device="cpu")
+                  preprocess="crops4", device="cpu")
