@@ -175,8 +175,40 @@ failed check raises and the script exits non-zero:
    destroyed at the end. Before phase 17, K1, K2 and K3 alone at the
    loop's shape (B=32, T=4), as in phase 16.
 
+20. visualize (right after "eval-tools", on phase 12's checkpoints):
+   ``cli.visualize.main --attn`` at 4 frames on a synthetic 256 x 342
+   ``.npy`` clip: ``boxes.png`` and ``cross_attn.png`` at their shapes,
+   the boxes in [0, 224], the last decoder layer's cross-attention rows
+   summing to 1 within 1e-3, K1 and K2 48 times each (the boxes' forward
+   and the ``--attn`` forward, in bf16); the same frames' maps through the
+   f32 kernel route and the f32 plain attention within 1e-4, and the CLI's
+   bf16 maps against the f32 plain ones with a cosine of at least 0.99 a
+   query.
+21. profile: ``utils.profiling.top_ops`` on the trace of phase 17's traced
+   step: device rows with names; the table printed.
+22. clip-bootstrap: a synthetic stock OpenAI ViT-L/14 at its published
+   shapes (visual 1024 x 24, patch 14, 224 px, ``visual.proj`` (1024,
+   768); text 768 x 12, vocabulary 49408, context 77), written with
+   ``torch.save`` (1.7 GB), trains through ``cli.train.main
+   --backbone_ckpt`` for 3 steps of 16 clips (8 items and their
+   negatives): the TimeSformer bootstrapped from it, finite losses, K1 and
+   K2 24 times a step and an eval forward, every K2 output of the first
+   step exactly zero with finite CLS partials (its time attention starts
+   at zero), the converted weights equal to the written ones, the frozen
+   backbone unchanged.
+23. clip-zoo: ``models.zoo.load_clip`` on that file and on a synthetic RN50
+   at its published widths (layers (3, 4, 6, 3), width 64, output 1024,
+   224 px; text 512 x 12): the configs read off as published;
+   ``clip_preprocess`` of 32 uint8 frames of 256 x 342 on the card
+   (against the CPU's, within 1e-4); the image and text towers on the card
+   against the CPU in f32 within 1e-3 of the CPU's largest value; the
+   card's images/s in f32 and bf16 at 32 images.
+24. doctor: ``cli.doctor.main()`` on the card: usable, the card among its
+   devices, every kernel library of ``csrc/`` in the build directory,
+   rc 0.
+
 Then one ``{"kernels": [...]}`` line, each kernel's launches summed over
-phases 5, 6, 10 and 12-19, and, last, ``{"ok": true, "device":
+phases 5, 6, 10, 12-20 and 22, and, last, ``{"ok": true, "device":
 {...}}``. Time attention is zero-initialised in the model (its qkv feeds
 the kernel zeros), so the smoke gives its weights seeded N(0, 0.02) values.
 """
@@ -1065,23 +1097,26 @@ _DECODER_NAMES = ((r"^pre_norm\.", "transformer.pre_norm."), (r"^decoder_norm\."
                   (r"^vid_proj\.", "vid_proj.0."), (r"^obj_proj\.1\.", "obj_proj.2."))
 
 
+def _renamed(sd: dict, names, prefix: str = "") -> dict:
+    """A port state dict -> f32 CPU tensors under the reference's names
+    (``names``: regex rewrites, then ``prefix``), q/k/v packed."""
+    out = {}
+    for k, v in sd.items():
+        for pat, rep in names:
+            k = re.sub(pat, rep, k)
+        out[prefix + k] = v.detach().float().cpu()
+    return _pack_mha(out)
+
+
 def reference_state_dicts(backbone, decoder, vcfg) -> tuple[dict, dict]:
     """The port's ``Lavila`` and ``ObjDecoder`` -> f32 CPU state dicts in the
     reference's layout, the inverse of ``models/weights.py``: the flat
     channel-last patch Linear back to the (D, C, P, P) conv, q/k/v packed."""
-    def rename(sd, names):
-        out = {}
-        for k, v in sd.items():
-            for pat, rep in names:
-                k = re.sub(pat, rep, k)
-            out[k] = v.detach().float().cpu()
-        return _pack_mha(out)
-
-    lsd = rename(backbone.state_dict(), _LAVILA_NAMES)
+    lsd = _renamed(backbone.state_dict(), _LAVILA_NAMES)
     w = lsd.pop("visual.patch_embed.weight")
     p = vcfg.patch_size
     lsd["visual.patch_embed.proj.weight"] = w.reshape(w.shape[0], p, p, vcfg.in_chans).permute(0, 3, 1, 2).contiguous()
-    return lsd, rename(decoder.state_dict(), _DECODER_NAMES)
+    return lsd, _renamed(decoder.state_dict(), _DECODER_NAMES)
 
 
 def _serve_cli(argv, card):
@@ -1638,12 +1673,12 @@ def _jsonl(path) -> list[dict]:
     return [json.loads(line) for line in open(path)]
 
 
-def _run_loop(argv) -> dict:
+def _run_loop(argv, keep_backbone: bool = False) -> dict:
     """``cli.train.main(argv)`` with the launch counts set to 0 just before
     and read just after; the models the run builds are snapshotted as
     built. -> the run's state, logs, launches, peak memory, and whether the
     backbone, ``class_embed`` and ``vid_proj`` are as built and every
-    logged metric finite."""
+    logged metric finite; with ``keep_backbone`` the backbone too."""
     import gc
 
     import torch
@@ -1687,6 +1722,8 @@ def _run_loop(argv) -> dict:
                                 for k, v in built["frozen"].items()),
         "finite": all(np.isfinite(v) for r in train + val for k, v in r.items() if k not in ("step", "time")),
     }
+    if keep_backbone:
+        res["backbone"] = backbone
     del built, backbone
     gc.collect()
     torch.cuda.empty_cache()
@@ -2347,9 +2384,315 @@ def phase_eval_tools(card, ckpts, epic, epic_results: dict, root: Path, device="
     return {k: fx["launches"][k] + rep["launches"][k] for k in _counters()}
 
 
+# ---------------------------------------------------------------- the rest of the single-card surface
+VIS_T, VIS_FRAMES, VIS_HW = 4, 60, (256, 342)  # cli.visualize's frames; the clip: 2 s at 30 fps
+BOOT_ITEMS, BOOT_STEPS = 8, 3  # 8 items and their negatives: the "train" phase's 16 clips a step
+ZOO_B = 32  # images a timed encode
+MAP_ATOL, MAP_COS = 1e-4, 0.99  # f32 kernel vs f32 plain maps; bf16 kernel vs f32 plain, a query's row
+
+
+def phase_visualize(card, ckpts, root: Path, device="cuda", backbone="timesformer_large"):
+    """"visualize": ``cli.visualize.main`` with ``--attn`` at full width (4
+    frames, the 13-query decoder with its trajectory head) from the
+    reference-layout checkpoints, on a synthetic 256 x 342 ``.npy`` clip:
+    both PNGs at their shapes, the boxes in [0, res], the last layer's
+    cross-attention rows summing to 1 within 1e-3, K1 and K2 48 times each
+    (the boxes' forward and the ``--attn`` forward); then the maps of the
+    same frames through the f32 kernel route and the f32 plain attention
+    within ``MAP_ATOL``, and the CLI's bf16 maps against the f32 plain ones
+    with a cosine of at least ``MAP_COS`` a query. -> launches."""
+    import torch
+    from PIL import Image
+
+    from helping_hand_for_egocentric_videos_torch.cli import visualize
+    from helping_hand_for_egocentric_videos_torch.data.video import read_clip_chunked
+
+    clip = root / "vis_clip.mp4.npy"
+    np.save(clip, np.random.default_rng(SEED + 30).integers(0, 256, size=(VIS_FRAMES, *VIS_HW, 3), dtype=np.uint8))
+    argv = ["--clip", str(clip), "--backbone", backbone, "--backbone_ckpt", ckpts[0], "--decoder_ckpt", ckpts[1],
+            "--device", device, "--out_dir", str(root / "vis"), "--attn"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with HarnessProbe(None) as probe:
+        # ---- the main path: counts set to 0 just before, read just after
+        reset_counts()
+        res = visualize.main(argv)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        # ----
+    seconds = time.perf_counter() - t0
+    model = probe.model
+    want = {k: 2 * v for k, v in launches_per_forward(model).items()}  # the boxes' forward, the --attn forward
+    px, nq = model.input_res, model.dec_cfg.num_queries
+    side = int(model.lavila_cfg.visual.patches_per_frame ** 0.5)
+    shapes = {"boxes.png": np.asarray(Image.open(res["boxes_png"])).shape,
+              "cross_attn.png": np.asarray(Image.open(res["cross_attn_png"])).shape}
+    attn, boxes = res["cross_attn"], res["boxes"]
+    row_err = float(np.abs(attn.sum(-1) - 1).max())
+
+    frames, _ = read_clip_chunked(str(clip), 0.0, 2.0, clip_length=VIS_T)
+    k32, p32 = _f32_models(model)
+    maps = [visualize.cross_attention_maps(m, frames, dtype=torch.float32).cpu().numpy() for m in (k32, p32)]
+    del k32, p32, model, probe
+    torch.cuda.empty_cache()
+    f32_err = float(np.abs(maps[0] - maps[1]).max())
+    cos = _cosine(attn, maps[1])
+    check = {"card": card, "seconds": seconds, "launches": launches, "launches_expected": want, "png_shapes": shapes,
+             "boxes_range": [float(boxes.min()), float(boxes.max())], "cross_attn_shape": list(attn.shape),
+             "row_sum_max_err": row_err, "f32_kernel_vs_plain_max_abs": f32_err, "f32_limit": MAP_ATOL,
+             "f32_map_max": float(maps[1].max()), "bf16_vs_f32_plain_min_cosine": float(cos.min()),
+             "cosine_limit": MAP_COS}
+    say("visualize", **check)
+    ok = (launches == want and shapes == {"boxes.png": (px, VIS_T * px, 3),
+                                          "cross_attn.png": (nq * side * 8, VIS_T * side * 8)}
+          and boxes.shape == (VIS_T, nq, 4) and 0 <= boxes.min() and boxes.max() <= px
+          and attn.shape == (nq, VIS_T * side * side) and np.isfinite(attn).all() and row_err <= 1e-3
+          and f32_err <= MAP_ATOL and (cos >= MAP_COS).all())
+    if not ok:
+        raise AssertionError("visualize: bad images, maps or launches (visualize line)")
+    return launches
+
+
+# the port's CLIP modules' state-dict names -> OpenAI's (the reference's model/openai_model.py)
+_CLIP_BLOCK_NAMES = ((r"^blocks\.", "transformer.resblocks."), (r"\.mlp_fc\.", ".mlp.c_fc."),
+                     (r"\.mlp_proj\.", ".mlp.c_proj."))
+_CLIP_RESNET_NAMES = ((r"\.downsample\.conv\.", ".downsample.0."), (r"\.downsample\.bn\.", ".downsample.1."),
+                      (r"^attnpool\.([qkvc])\.", r"attnpool.\1_proj."))
+
+
+# the stock OpenAI CLIP models the smoke writes, at their published shapes: (visual, text) config
+# keywords; ClipVitConfig's and ClipResNetConfig's defaults are ViT-L/14's and RN50's visual towers
+CLIP_SHAPES = {"ViT-L/14": ({}, {"width": 768, "heads": 12, "layers": 12, "embed_dim": 768}),
+               "RN50": ({}, {"width": 512, "heads": 8, "layers": 12, "embed_dim": 1024})}
+
+
+def clip_configs(kind: str):
+    """-> (visual config, text config) of ``CLIP_SHAPES[kind]``."""
+    from helping_hand_for_egocentric_videos_torch.models import clip_image as ci
+    from helping_hand_for_egocentric_videos_torch.models.clip_text import TextConfig
+
+    vkw, tkw = CLIP_SHAPES[kind]
+    return (ci.ClipVitConfig if kind.startswith("ViT") else ci.ClipResNetConfig)(**vkw), TextConfig(**tkw)
+
+
+def openai_clip_state_dict(kind: str, device, seed: int) -> dict:
+    """Seeded random weights of a stock OpenAI CLIP at its published shapes
+    (``CLIP_SHAPES``), in OpenAI's key layout, f32 on the CPU: "ViT-L/14"
+    (visual width 1024, 24 layers, patch 14, 224 px, ``visual.proj`` (1024,
+    768); text 768 x 12, vocabulary 49408, context 77) or "RN50" (layers
+    (3, 4, 6, 3), width 64, output 1024, 224 px; text 512 x 12, embedding
+    1024), BatchNorm statistics away from the identity. The inverse of the
+    port's converters."""
+    import math
+
+    import torch
+
+    from helping_hand_for_egocentric_videos_torch.models import clip_image as ci
+    from helping_hand_for_egocentric_videos_torch.models.clip_text import TextTransformer
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    vcfg, tcfg = clip_configs(kind)
+    if kind.startswith("ViT"):
+        visual = ci.ClipVisionTransformer(vcfg, generator=gen, device=device)
+        names = _CLIP_BLOCK_NAMES
+    else:
+        visual = ci.ClipResNet(vcfg, generator=gen, device=device)
+        with torch.no_grad():
+            for bn in (m for m in visual.modules() if isinstance(m, ci.BatchNorm)):
+                bn.weight.normal_(1.0, 0.1, generator=gen)
+                bn.bias.normal_(0.0, 0.1, generator=gen)
+                bn.running_mean.normal_(0.0, 0.1, generator=gen)
+                bn.running_var.uniform_(0.5, 1.5, generator=gen)
+        names = _CLIP_RESNET_NAMES
+    text = TextTransformer(tcfg, generator=gen, device=device)
+    sd = _renamed(visual.state_dict(), names, "visual.")
+    sd.update(_renamed(text.state_dict(), ((r"^token_embedding$", "token_embedding.weight"),
+                                                *_CLIP_BLOCK_NAMES)))
+    sd["logit_scale"] = torch.tensor(math.log(1 / 0.07))
+    return sd
+
+
+def phase_clip_bootstrap(card, fixture, root: Path, device="cuda"):
+    """"clip-bootstrap": a synthetic stock OpenAI ViT-L/14 (its published
+    shapes, ``openai_clip_state_dict``) written with ``torch.save`` trains
+    through ``cli.train.main --backbone_ckpt`` for ``BOOT_STEPS`` steps of
+    ``BOOT_ITEMS`` items (16 clips with their negatives, the "train"
+    phase's shape): the TimeSformer bootstrapped from it (zero time
+    attention), finite losses, K1 and K2 24 times a step, every K2 output
+    of the first step exactly zero with finite CLS partials, the converted
+    spatial and text weights equal to the written ones, and the frozen
+    backbone unchanged after the steps. -> (launches, the checkpoint's
+    path)."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from helping_hand_for_egocentric_videos_torch.models import lavila
+    from helping_hand_for_egocentric_videos_torch.models import spacetime_vit as stv
+
+    t0 = time.perf_counter()
+    sd = openai_clip_state_dict("ViT-L/14", device, SEED + 31)
+    vcfg, tcfg = clip_configs("ViT-L/14")
+    path = root / "ViT-L-14.pt"
+    torch.save(sd, path)
+    write_s = time.perf_counter() - t0
+    meta, data = fixture
+    real, seen = stv.divided_patch_attention, []
+
+    def probe(qkv, ck, cv, cq, *, mode, **kw):  # the first step's K2 calls: largest |output|, finite partials
+        out = real(qkv, ck, cv, cq, mode=mode, **kw)
+        if mode == "time" and len(seen) < vcfg.layers:
+            seen.append((out[0].abs().amax().float(), torch.stack([torch.isfinite(x).all() for x in out[1]]).all()))
+        return out
+
+    stv.divided_patch_attention = probe
+    try:
+        # --batch_size after _loop_argv's own: the last one counts
+        run = _run_loop(_loop_argv(meta, data, root / "runs", "clip", "--backbone_ckpt", str(path), "--max_steps",
+                                   str(BOOT_STEPS), "--batch_size", str(BOOT_ITEMS), *_loop_sets()),
+                        keep_backbone=True)
+    finally:
+        stv.divided_patch_attention = real
+    per_forward = launches_per_forward(SimpleNamespace(lavila_cfg=lavila.timesformer_large_config(LOOP_T),
+                                                       int8=False))
+    counts = _expect_launches(run, per_forward, BOOT_STEPS, run["val"])
+    k2_max = [float(m) for m, _ in seen]
+    k2_finite = all(bool(f) for _, f in seen)
+    backbone = run.pop("backbone")
+    written = []
+    for i in range(vcfg.layers):
+        blk, src = backbone.visual.blocks[i], f"visual.transformer.resblocks.{i}"
+        written += [torch.equal(blk.attn.qkv.weight.cpu(), sd[f"{src}.attn.in_proj_weight"]),
+                    torch.equal(blk.mlp_fc2.weight.cpu(), sd[f"{src}.mlp.c_proj.weight"]),
+                    not blk.timeattn.qkv.weight.any(), bool((blk.timeattn.proj.weight == 1).all())]
+    for i in range(tcfg.layers):
+        written.append(torch.equal(backbone.text.blocks[i].attn.wq.weight.cpu(),
+                                   sd[f"transformer.resblocks.{i}.attn.in_proj_weight"][:tcfg.width]))
+    conv = sd["visual.conv1.weight"].permute(0, 2, 3, 1).reshape(vcfg.width, -1)
+    written.append(torch.equal(backbone.visual.patch_embed.weight.cpu(), conv))
+    losses = _losses(run["train"])
+    res = {"card": card, "checkpoint_gb": path.stat().st_size / 1e9, "write_seconds": write_s,
+           "steps": run["state"].step, "clips_per_step": 2 * BOOT_ITEMS, "total_loss": losses,
+           "launches": run["launches"], "launches_per_step": per_forward, **counts, "finite": run["finite"],
+           "k2_first_step_max_abs": max(k2_max) if k2_max else None, "k2_calls_seen": len(k2_max),
+           "k2_partials_finite": k2_finite, "converted_equal_written": all(written),
+           "backbone_unchanged": run["backbone_unchanged"], "seconds": run["seconds"],
+           "peak_memory_gb": run["peak_memory_gb"], "step_ms": _window_ms(run["train"])}
+    say("clip-bootstrap", **res)
+    if not (run["state"].step == BOOT_STEPS and run["finite"] and sorted(losses) == list(range(1, BOOT_STEPS + 1))
+            and len(k2_max) == vcfg.layers and max(k2_max) == 0.0 and k2_finite and all(written)
+            and run["backbone_unchanged"] and run["frozen_unchanged"]):
+        raise AssertionError("clip-bootstrap: the bootstrapped backbone did not train as it must (clip-bootstrap line)")
+    launches = run["launches"]
+    del backbone, run
+    torch.cuda.empty_cache()
+    return launches, path
+
+
+def phase_clip_zoo(card, vit_path: Path, root: Path, device="cuda"):
+    """"clip-zoo": ``models.zoo.load_clip`` on the ViT-L/14 file of
+    "clip-bootstrap" and on a synthetic RN50 at its published widths, each
+    tower and config at its published shape; ``clip_preprocess`` of
+    ``ZOO_B`` uint8 frames of 256 x 342 on the card (against the CPU's);
+    the image and text towers on the card against the CPU in f32 (within
+    1e-3 of the CPU's largest value, 2 images, 2 captions), and the
+    card's images/s in f32 and bf16 at ``ZOO_B`` images (CUDA events)."""
+    import copy
+
+    import torch
+
+    from helping_hand_for_egocentric_videos_torch.models import zoo
+    from helping_hand_for_egocentric_videos_torch.models.clip_text import encode_text
+
+    rn_path = root / "RN50.pt"
+    torch.save(openai_clip_state_dict("RN50", device, SEED + 32), rn_path)
+    frames = torch.from_numpy(np.random.default_rng(SEED + 33).integers(0, 256, size=(ZOO_B, 256, 342, 3),
+                                                                        dtype=np.uint8))
+    imgs = zoo.clip_preprocess(frames.to(device))
+    imgs_cpu = zoo.clip_preprocess(frames)
+    pre_err = float((imgs.cpu() - imgs_cpu).abs().max())
+    tokens = torch.zeros(2, 77, dtype=torch.long)  # [SOT, words, EOT, padding]
+    tokens[:, 0] = 49406
+    tokens[0, 1:5] = torch.tensor([320, 1125, 518, 49407])
+    tokens[1, 1:3] = torch.tensor([3305, 49407])
+    out = {}
+    ok = imgs.device.type == torch.device(device).type and imgs.shape == (ZOO_B, 224, 224, 3) and pre_err <= 1e-4
+    for name, path in (("ViT-L/14", vit_path), ("RN50", rn_path)):
+        t0 = time.perf_counter()
+        z = zoo.load_clip(str(path))
+        load_s = time.perf_counter() - t0
+        vcfg, tcfg, enc = z["visual_cfg"], z["text_cfg"], z["encode_image"]
+        shapes_ok = (vcfg, tcfg) == clip_configs(name)
+        vis, txt = copy.deepcopy(z["visual_params"]).to(device), copy.deepcopy(z["text_params"]).to(device)
+        with torch.inference_mode():
+            want = enc(z["visual_params"], vcfg, imgs_cpu[:2])
+            got = enc(vis, vcfg, imgs[:2]).cpu()
+            want_t = encode_text(z["text_params"], tcfg, tokens)[0]
+            got_t = encode_text(txt, tcfg, tokens.to(device))[0].cpu()
+            ms = {dt: cuda_ms(lambda dt=dt: enc(vis, vcfg, imgs, dtype=getattr(torch, dt)), 5)
+                  for dt in ("float32", "bfloat16")}
+        rel = float((got - want).abs().max() / want.abs().max())
+        rel_t = float((got_t - want_t).abs().max() / want_t.abs().max())
+        out[name] = {"kind": z["kind"], "load_seconds": load_s, "published_shapes": shapes_ok,
+                     "embed_dim": list(got.shape), "card_vs_cpu_rel_err": rel, "text_card_vs_cpu_rel_err": rel_t,
+                     "images": ZOO_B, "ms": ms, "images_per_s": {dt: ZOO_B / (v / 1e3) for dt, v in ms.items()}}
+        ok = ok and shapes_ok and z["kind"] == ("vit" if name == "ViT-L/14" else "resnet") and rel <= 1e-3 \
+            and rel_t <= 1e-3 and bool(torch.isfinite(got).all())
+        del z, vis, txt
+        torch.cuda.empty_cache()
+    say("clip-zoo", card=card, preprocess={"device": str(imgs.device), "shape": list(imgs.shape),
+                                           "card_vs_cpu_max_abs": pre_err}, towers=out, rel_limit=1e-3)
+    rn_path.unlink()
+    if not ok:
+        raise AssertionError("clip-zoo: a tower, its shapes or the preprocessing disagree (clip-zoo line)")
+
+
+def phase_doctor(card):
+    """"doctor": ``cli.doctor.main()`` on the card, after every kernel was
+    built: usable, the card among the devices, each kernel library of
+    ``csrc/`` in the build directory, rc 0."""
+    import contextlib
+
+    import torch
+
+    from helping_hand_for_egocentric_videos_torch.cli import doctor
+    from helping_hand_for_egocentric_videos_torch.ops import _build
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = doctor.main(["--timeout", "120"])
+    rep = json.loads(buf.getvalue())
+    want = sorted(_build._target(p.stem)[1].name for p in _build.SOURCES.glob("*.cu"))
+    name = torch.cuda.get_device_name(0)
+    res = {"card": card, "rc": rc, "seconds": time.perf_counter() - t0,
+           **{k: rep[k] for k in ("usable", "devices", "device_smoke", "kernel_build", "native_stage",
+                                  "decode_backends", "bpe_vocab")}, "libraries_expected": want}
+    say("doctor", **res)
+    if not (rc == 0 and rep["usable"] and any(name in d for d in rep["devices"] or [])
+            and set(want) <= set(rep["kernel_build"]["libraries"]) and rep["kernel_build"]["nvcc"]):
+        raise AssertionError("doctor: the report does not show a usable card with its kernels (doctor line)")
+
+
+def phase_profile(card, log_dir: Path):
+    """"profile": ``utils.profiling.top_ops`` on the trace of the train
+    loop's profile step: device rows (kernels) with names, and the table
+    printed. Rows and names only: the trace loses kernel events after the
+    loop's earlier phases (PERF.md section 7), so no count is asked for."""
+    from helping_hand_for_egocentric_videos_torch.utils.profiling import top_ops
+
+    rows = top_ops(str(log_dir), k=20)
+    device_rows = [r for r in rows if r[1] == "device"]
+    say("profile", card=card, trace=str(log_dir / "trace.json"), rows=len(rows), device_rows=len(device_rows),
+        table=[{"self_ms": ms, "where": where, "name": name} for ms, where, name in rows])
+    if not (device_rows and all(isinstance(r[2], str) and r[2] and r[0] >= 0 for r in rows)):
+        raise AssertionError("profile: top_ops shows no device rows in the loop's trace (profile line)")
+
+
 def phase_eval(card, device="cuda", backbone="timesformer_large") -> dict:
-    """The eval phases on one pair of reference-layout checkpoints (full
-    width, 4 frames), written under ``build/``. -> their launches."""
+    """The eval phases and "visualize" on one pair of reference-layout
+    checkpoints (full width, 4 frames), written under ``build/``. -> their
+    launches."""
     import gc
 
     import torch
@@ -2367,7 +2710,8 @@ def phase_eval(card, device="cuda", backbone="timesformer_large") -> dict:
         launches = [phase_eval_egomcq(card, ckpts, root, device, backbone)]
         epic_launches, epic, epic_results = phase_eval_epic(card, ckpts, root, device, backbone)
         launches.append(epic_launches)
-        for phase in (phase_eval_egtea, partial(phase_eval_tools, epic=epic, epic_results=epic_results)):
+        for phase in (phase_eval_egtea, partial(phase_eval_tools, epic=epic, epic_results=epic_results),
+                      phase_visualize):
             gc.collect()
             torch.cuda.empty_cache()
             launches.append(phase(card, ckpts, root=root, device=device, backbone=backbone))
@@ -2416,11 +2760,16 @@ def main():
     launches_loop, fixture, _ = phase_train_loop(card, loop_root)
     launches_loop8, ref_losses = phase_train_loop_int8(card, fixture, loop_root)
     launches_dist = phase_train_loop_dist(card, fixture, loop_root, ref_losses)
+    phase_profile(card, loop_root / "runs" / "loop" / "profile")
+    launches_boot, vit_path = phase_clip_bootstrap(card, fixture, loop_root)
+    phase_clip_zoo(card, vit_path, loop_root)
     shutil.rmtree(loop_root, ignore_errors=True)
+    phase_doctor(card)
     # launches on the main path: the serving runs at 16 and at 128 frames, bf16
-    # and int8, the eval CLIs, the train steps and the training loops
+    # and int8, the eval CLIs and visualize, the train steps, the training loops
+    # and the loop on the CLIP bootstrap
     total = {k: launches[k] + launches8[k] + launches_long[k] + launches_eval[k] + launches_train[k]
-             + launches_loop[k] + launches_loop8[k] + launches_dist[k] for k in _counters()}
+             + launches_loop[k] + launches_loop8[k] + launches_dist[k] + launches_boot[k] for k in _counters()}
     counts = {
         "space": total["divided_attention_space"], "time": total["divided_attention_time"],
         "space_int8": total["divided_attention_space_int8"], "time_int8": total["divided_attention_time_int8"],

@@ -5,7 +5,9 @@ port imports nothing of the JAX package), with one change: the library
 and the ``hh_ffmpeg`` tool build from the checkout's root ``native/``
 into the checkout's ``build/native/`` (git ignores ``build/``), as the
 CUDA kernels build into ``build/torch_kernels/`` (``ops/_build.py``);
-nothing is written inside either package.
+nothing is written inside either package; and a library that cannot load
+(built on another machine, a library it links missing here) raises
+``NativeUnavailable`` like a failed build.
 
 Builds the shared library on first use if a toolchain is available; a
 missing toolchain or ``libjpeg`` raises ``NativeUnavailable``, and
@@ -71,7 +73,10 @@ def get_lib():
             _build()
         except Exception as e:  # toolchain missing / libjpeg absent
             raise NativeUnavailable(f"failed to build hh_dataio: {e}") from e
-    lib = ctypes.CDLL(_LIB_PATH)
+    try:
+        lib = ctypes.CDLL(_LIB_PATH)
+    except OSError as e:  # built on another machine: a library it links is missing here
+        raise NativeUnavailable(f"cannot load {_LIB_PATH}: {e}") from e
     lib.hh_jpeg_dims.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
     lib.hh_decode_jpeg.argtypes = [ctypes.c_char_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
     lib.hh_decode_jpeg_batch.argtypes = [

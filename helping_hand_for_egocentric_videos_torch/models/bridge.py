@@ -9,6 +9,11 @@ state dict of the port's modules:
   and ``bias``; the flat (P*P*C, D) patchifier and the decoder's bias-free
   ``proj`` are Linears without ``b``;
 - a LayerNorm ``{"g", "b"}`` becomes ``weight`` and ``bias``;
+- a conv ``{"w": (kh, kw, in, out)}`` (HWIO) becomes ``weight`` (out, in,
+  kh, kw), and a BatchNorm ``{"g", "b", "mean", "var"}`` ``weight``,
+  ``bias``, ``running_mean`` and ``running_var`` (the CLIP ResNet tower);
+  its blocks' ``stride`` (an int, not a weight) is left out, so
+  ``load_jax_params(ClipResNet(cfg), tree)`` loads a JAX ResNet tower;
 - blocks stacked on a leading depth axis (``blocks`` of the visual and
   text towers, ``layers`` of the decoder) become ``blocks.<i>.``;
 - lists (``bbox_mlp``, ``obj_proj``) become ``<name>.<i>.``;
@@ -25,6 +30,11 @@ state dict of the port's modules:
 - any other array (embeddings, projections, ``logit_scale``) is copied
   as it is.
 
+The CLIP ViT's flat (P*P*3, width) patchifier becomes the (width, 3, P, P)
+conv of ``clip_image.ClipVisionTransformer`` (``clip_vit_from_jax``); a
+tree without ``text`` (a vision-only LaviLa checkpoint) loads into a
+``Lavila`` without a text tower (``lavila_from_jax``).
+
 Float leaves become f32 tensors; int8 codes and bool flags keep their
 types.
 """
@@ -35,11 +45,18 @@ import numpy as np
 import torch
 from torch import nn
 
+from .clip_image import ClipVisionTransformer, ClipVitConfig
 from .lavila import Lavila, LavilaConfig
 from .obj_decoder import DecoderConfig, ObjDecoder
 from .quant import QuantLinear
 
-__all__ = ["jax_tree_to_state_dict", "load_jax_params", "from_jax_params"]
+__all__ = [
+    "jax_tree_to_state_dict",
+    "load_jax_params",
+    "from_jax_params",
+    "lavila_from_jax",
+    "clip_vit_from_jax",
+]
 
 _STACKED = ("blocks", "layers")
 
@@ -70,16 +87,24 @@ def _flatten(tree, prefix: str, out: dict):
                 out[prefix + "q_on"] = _tensor(tree["q_on"])
                 out[prefix + "weight"] = _tensor(tree["w"]).T.contiguous()
             return
+        if "w" in tree and np.ndim(tree["w"]) == 4:  # conv, HWIO -> torch (out, in, kh, kw)
+            out[prefix + "weight"] = _tensor(tree["w"]).permute(3, 2, 0, 1).contiguous()
+            return
         if "w" in tree:  # Linear, (in, out) -> torch (out, in)
             out[prefix + "weight"] = _tensor(tree["w"]).T.contiguous()
             if "b" in tree:
                 out[prefix + "bias"] = _tensor(tree["b"])
             return
-        if "g" in tree:  # LayerNorm
+        if "g" in tree:  # LayerNorm, or BatchNorm with its running statistics
             out[prefix + "weight"] = _tensor(tree["g"])
             out[prefix + "bias"] = _tensor(tree["b"])
+            if "mean" in tree:
+                out[prefix + "running_mean"] = _tensor(tree["mean"])
+                out[prefix + "running_var"] = _tensor(tree["var"])
             return
         for k, v in tree.items():
+            if k == "stride":
+                continue
             if k in _STACKED:
                 depth = len(np.asarray(_first_leaf(v)))
                 for i in range(depth):
@@ -127,3 +152,28 @@ def from_jax_params(backbone, decoder, lavila_cfg: LavilaConfig, dec_cfg: Decode
         load_jax_params(Lavila(lavila_cfg), backbone),
         load_jax_params(ObjDecoder(dec_cfg), decoder),
     )
+
+
+def lavila_from_jax(tree, cfg: LavilaConfig) -> Lavila:
+    """A JAX LaviLa tree (``convert_lavila_checkpoint``'s, vision-only or
+    not) -> ``Lavila`` on the CPU: without a text tower where the tree has
+    no ``text``, without ``image_projection`` / ``logit_scale`` where it
+    has none."""
+    module = Lavila(cfg, text="text" in tree)
+    for name in ("image_projection", "logit_scale"):
+        if name not in tree:
+            setattr(module, name, None)
+    return load_jax_params(module, tree)
+
+
+def clip_vit_from_jax(tree, cfg: ClipVitConfig) -> ClipVisionTransformer:
+    """A JAX CLIP ViT tree (``init_clip_vit_params`` or
+    ``convert_openai_vit_tower``) -> ``ClipVisionTransformer`` on the CPU."""
+    tree = dict(tree)
+    w = _tensor(tree.pop("patch_embed")["w"])  # (P*P*3, width), (ph, pw, c) order
+    p = cfg.patch_size
+    sd = jax_tree_to_state_dict(tree)
+    sd["conv1.weight"] = w.reshape(p, p, 3, cfg.width).permute(3, 2, 0, 1).contiguous()
+    module = ClipVisionTransformer(cfg)
+    module.load_state_dict(sd, strict=True)
+    return module

@@ -92,7 +92,10 @@ def encode_text(params: TextTransformer, cfg: TextConfig, tokens, *, dtype=torch
 
     ``text_embed`` is the projected EOT feature (not normalised);
     ``feature_map`` is the ln_final output the decoder's txt_proj reads.
+    ``params`` None (a vision-only ``Lavila``'s ``text``) raises.
     """
+    if params is None:
+        raise ValueError("this backbone has no text tower (a vision-only checkpoint): it cannot embed text")
     b, n = tokens.shape
     x = params.token_embedding[tokens].to(dtype)
     x = x + params.positional_embedding[:n].to(dtype)

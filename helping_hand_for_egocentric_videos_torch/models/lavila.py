@@ -70,13 +70,18 @@ def timesformer_tiny_config(num_frames: int = 4, project_embed_dim: int = 64) ->
 
 
 class Lavila(nn.Module):
-    """Parameters of the dual encoder (mirrors ``init_lavila_params``)."""
+    """Parameters of the dual encoder (mirrors ``init_lavila_params``).
 
-    def __init__(self, cfg: LavilaConfig, *, generator=None, device=None):
+    ``text=False`` leaves out the text tower (``self.text`` is None): the
+    model of a vision-only checkpoint, which embeds video only; its text
+    side raises. A converted vision-only checkpoint may also lack
+    ``image_projection`` or ``logit_scale`` (then None)."""
+
+    def __init__(self, cfg: LavilaConfig, *, text: bool = True, generator=None, device=None):
         super().__init__()
         kw = {"generator": generator, "device": device}
         self.visual = SpaceTimeViT(cfg.visual, **kw)
-        self.text = TextTransformer(cfg.text, **kw)
+        self.text = TextTransformer(cfg.text, **kw) if text else None
         self.image_projection = nn.Parameter(
             torch.randn(cfg.visual.width, cfg.embed_dim, device=device, generator=generator)
             * cfg.visual.width**-0.5
@@ -88,6 +93,8 @@ class Lavila(nn.Module):
 
 def encode_image(params: Lavila, cfg: LavilaConfig, video, *, dtype=torch.bfloat16):
     """video (B, T, H, W, C) -> (projected CLS (B, E), token map (B, 1+T*N, D))."""
+    if params.image_projection is None:
+        raise ValueError("this backbone has no image_projection (a vision-only checkpoint without one)")
     x_cls, x = spacetime_forward(params.visual, cfg.visual, video, dtype=dtype)
     return x_cls @ params.image_projection, x
 

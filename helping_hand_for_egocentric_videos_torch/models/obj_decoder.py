@@ -17,11 +17,14 @@ Train mode (``deterministic=False`` with a ``torch.Generator``) draws six
 dropouts a layer, in this order: the self-attention weights, the
 self-attention residual, the cross-attention weights, the cross-attention
 residual, the FFN hidden activation and the FFN residual. Eval mode (the
-default) draws none.
+default) draws none. ``return_attn`` adds each layer's head-averaged
+cross- and self-attention maps to the output (``cli/visualize.py`` draws
+the last layer's).
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
@@ -42,6 +45,7 @@ __all__ = [
     "ObjDecoder",
     "DecoderOutput",
     "decoder_forward",
+    "position_embedding_sine",
     "txt_proj",
     "vid_proj",
     "obj_proj",
@@ -152,19 +156,26 @@ def _bbox_mlp(params: ObjDecoder, x):
     return linear(params.bbox_mlp[2], h)
 
 
-def _decoder_layer(p: DecoderLayer, tgt, memory, query_pos, pos, cfg: DecoderConfig, generator=None):
-    """Pre-norm, self-attention-first layer; dropout where ``generator``."""
+def _decoder_layer(p: DecoderLayer, tgt, memory, query_pos, pos, cfg: DecoderConfig, generator=None,
+                   return_attn: bool = False):
+    """Pre-norm, self-attention-first layer; dropout where ``generator``.
+    With ``return_attn`` -> (output, cross-attention map, self-attention
+    map), both head-averaged and taken before dropout."""
     eps, rate = cfg.ln_eps, cfg.dropout
-    attn_kw = {"generator": generator, "dropout_rate": rate}
+    attn_kw = {"generator": generator, "dropout_rate": rate, "return_probs": return_attn}
     t2 = layer_norm(p.norm1, tgt, eps)
     qk = t2 + query_pos
-    tgt = tgt + dropout(generator, multi_head_attention(p.self_attn, qk, qk, t2, cfg.nhead, **attn_kw), rate)
+    sa = multi_head_attention(p.self_attn, qk, qk, t2, cfg.nhead, **attn_kw)
+    sa, self_attn = sa if return_attn else (sa, None)
+    tgt = tgt + dropout(generator, sa, rate)
     t2 = layer_norm(p.norm2, tgt, eps)
     ca = multi_head_attention(p.cross_attn, t2 + query_pos, memory + pos, memory, cfg.nhead, **attn_kw)
+    ca, cross_attn = ca if return_attn else (ca, None)
     tgt = tgt + dropout(generator, ca, rate)
     t2 = layer_norm(p.norm3, tgt, eps)
     hidden = dropout(generator, torch.relu(linear(p.linear1, t2)), rate)
-    return tgt + dropout(generator, linear(p.linear2, hidden), rate)
+    out = tgt + dropout(generator, linear(p.linear2, hidden), rate)
+    return (out, cross_attn, self_attn) if return_attn else out
 
 
 @dataclass
@@ -174,10 +185,12 @@ class DecoderOutput:
     aux_pred_logits: torch.Tensor  # (L-1, B', Q', C+1)
     aux_pred_boxes: torch.Tensor  # (L-1, B', Q', 4)
     hs: torch.Tensor  # (L, B, Q, D) normed intermediate states
+    cross_attn: torch.Tensor | None = None  # (L, B, Q, T*N) head-averaged maps
+    self_attn: torch.Tensor | None = None  # (L, B, Q, Q)
 
 
 def decoder_forward(params: ObjDecoder, cfg: DecoderConfig, features, *, generator=None,
-                    deterministic: bool = True) -> DecoderOutput:
+                    deterministic: bool = True, return_attn: bool = False) -> DecoderOutput:
     """Run the object decoder.
 
     Args:
@@ -205,9 +218,13 @@ def decoder_forward(params: ObjDecoder, cfg: DecoderConfig, features, *, generat
     tgt = torch.zeros((b, q, d), dtype=mem.dtype, device=mem.device)
 
     gen = None if deterministic else generator
-    hs = []
+    hs, cross_maps, self_maps = [], [], []
     for layer in params.layers:
-        tgt = _decoder_layer(layer, tgt, memory, query_pos, pos, cfg, gen)
+        tgt = _decoder_layer(layer, tgt, memory, query_pos, pos, cfg, gen, return_attn)
+        if return_attn:
+            tgt, ca, sa = tgt
+            cross_maps.append(ca)
+            self_maps.append(sa)
         hs.append(layer_norm(params.decoder_norm, tgt, cfg.ln_eps))
     hs = torch.stack(hs)  # (L, B, Q, D)
     num_layers = hs.shape[0]
@@ -240,4 +257,34 @@ def decoder_forward(params: ObjDecoder, cfg: DecoderConfig, features, *, generat
         aux_pred_logits=outputs_class[:-1],
         aux_pred_boxes=outputs_coord[:-1],
         hs=hs,
+        cross_attn=torch.stack(cross_maps) if return_attn else None,
+        self_attn=torch.stack(self_maps) if return_attn else None,
     )
+
+
+def position_embedding_sine(mask, num_pos_feats: int = 64, temperature: float = 10000.0,
+                            normalize: bool = False, scale: float | None = None):
+    """DETR's sine positional embedding over a padding mask (the
+    reference's model/tfm_decoder.py:13-47; its main path learns a 3D
+    position embedding instead, so this is off that path).
+
+    mask: (B, H, W) bool, True = padded -> (B, 2*num_pos_feats, H, W) f32,
+    channel first as the reference returns it."""
+    if scale is not None and not normalize:
+        raise ValueError("normalize should be True if scale is passed")
+    if scale is None:
+        scale = 2 * math.pi
+    not_mask = (~mask).float()
+    y_embed = not_mask.cumsum(dim=1)
+    x_embed = not_mask.cumsum(dim=2)
+    if normalize:
+        eps = 1e-6
+        y_embed = y_embed / (y_embed[:, -1:, :] + eps) * scale
+        x_embed = x_embed / (x_embed[:, :, -1:] + eps) * scale
+    dim_t = torch.arange(num_pos_feats, dtype=torch.float32, device=mask.device)
+    dim_t = temperature ** (2 * (dim_t // 2) / num_pos_feats)
+    pos_x = x_embed[..., None] / dim_t  # (B, H, W, F)
+    pos_y = y_embed[..., None] / dim_t
+    pos_x = torch.stack((pos_x[..., 0::2].sin(), pos_x[..., 1::2].cos()), dim=4).flatten(3)
+    pos_y = torch.stack((pos_y[..., 0::2].sin(), pos_y[..., 1::2].cos()), dim=4).flatten(3)
+    return torch.cat((pos_y, pos_x), dim=3).permute(0, 3, 1, 2)

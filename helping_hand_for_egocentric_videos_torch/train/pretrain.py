@@ -48,7 +48,12 @@ from ..models import (
     timesformer_large_config,
     timesformer_tiny_config,
 )
-from ..models.weights import convert_decoder_checkpoint, convert_lavila_checkpoint, load_torch_state_dict
+from ..models.weights import (
+    convert_decoder_checkpoint,
+    convert_lavila_checkpoint,
+    convert_openai_clip_checkpoint,
+    load_torch_state_dict,
+)
 from ..parallel import init_from_env
 from ..utils.logging import AverageMeter, MetricLogger, ProgressMeter
 from .evaluate import EvalModel, run_egomcq
@@ -59,7 +64,11 @@ __all__ = ["build_models", "build_train_config", "pretrain"]
 
 def build_models(cfg: ExperimentConfig, rng_seed: int = 0):
     """-> (lavila_cfg, backbone ``Lavila``, dec_cfg, decoder ``ObjDecoder``),
-    on the CPU. A checkpoint keeps its own temporal-embedding length. With
+    on the CPU. A checkpoint keeps its own temporal-embedding length. A
+    stock OpenAI CLIP ``backbone_ckpt`` (``visual.class_embedding`` among
+    its keys) bootstraps the TimeSformer (``convert_openai_clip_checkpoint``:
+    zero time attention, a zero temporal embedding of ``data.num_frames``);
+    its towers must have ``model.backbone``'s shapes. With
     ``model.int8_backbone`` the backbone's visual block matmuls are
     quantized (``models/quant.py``): its training forward then takes the
     int8 route (K3, K4, K5 and ``torch._int_mm`` on the card)."""
@@ -81,11 +90,12 @@ def build_models(cfg: ExperimentConfig, rng_seed: int = 0):
     if cfg.model.backbone_ckpt:
         sd = load_torch_state_dict(cfg.model.backbone_ckpt)
         if "visual.class_embedding" in sd:
-            raise NotImplementedError(
-                "a stock OpenAI CLIP checkpoint needs convert_openai_clip_checkpoint, which the "
-                "port does not have yet (ROADMAP.md, queue A, models/weights.py)"
-            )
-        backbone = convert_lavila_checkpoint(sd, lavila_cfg)
+            # stock OpenAI CLIP weights -> the TimeSformer bootstrap, as the
+            # reference's factory does on from-scratch runs (run/train.py:425-431)
+            backbone = convert_openai_clip_checkpoint(sd, num_frames=cfg.data.num_frames,
+                                                      project_embed_dim=cfg.model.project_embed_dim, cfg=lavila_cfg)
+        else:
+            backbone = convert_lavila_checkpoint(sd, lavila_cfg)
     else:
         backbone = Lavila(lavila_cfg, generator=torch.Generator().manual_seed(rng_seed))
     if cfg.model.decoder_ckpt:

@@ -364,6 +364,30 @@ def test_cuda_kernel_matches_plain(cuda_device, mode, shape, dtype):
     torch.testing.assert_close(cls, want_cls, rtol=0, atol=1e-4)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_all_zero_time_attention_gives_exact_zeros(request, device, dtype):
+    """Time attention bootstrapped from a stock CLIP checkpoint starts with
+    its qkv weights and biases zero (``time_init='zeros'``), so K2 sees
+    all-zero q, k, v and CLS rows: a uniform softmax over zero values
+    must give exact zeros, with finite CLS partials that merge to zeros.
+    At the bootstrap's train shape (16 clips of 4 frames, full width);
+    the CPU case is the wrapper's plain version."""
+    dev = request.getfixturevalue("cuda_device") if device == "cuda" else torch.device("cpu")
+    b, t, n, heads, dh = (16, 4, 256, 16, 64) if device == "cuda" else (2, 4, 16, 4, 16)
+    d = heads * dh
+    dt = getattr(torch, dtype)
+    qkv = torch.zeros(b, t, n, 3 * d, dtype=dt, device=dev)
+    ck, cv, cq = (torch.zeros(b, d, dtype=dt, device=dev) for _ in range(3))
+    before = da.divided_patch_attention.launches_time
+    out, parts = da.divided_patch_attention(qkv, ck, cv, cq, mode="time", heads=heads)
+    assert da.divided_patch_attention.launches_time == before + (device == "cuda")
+    cls = da.merge_cls_partials(*parts, cq, ck, cv, heads)
+    assert out.shape == (b, t, n, d) and out.dtype == dt
+    assert not out.any() and not cls.any()
+    assert all(torch.isfinite(part).all() for part in parts)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize(
