@@ -30,7 +30,12 @@ failed check raises and the script exits non-zero:
    events' time through the wrapper is ``events_ms``), and prints the
    bf16 kernel's cut of the group (heads and warps a block, streamed or
    not, shared memory). K1 is also checked and timed at the long-clip
-   shape (B=2, T=128), where it takes the largest share of the forward.
+   shape (B=2, T=128), where it takes the largest share of the forward,
+   and K1 and K2 at the local heads of TimeSformer-L split over 2 and 4
+   ranks (H = 8 and 4) at (16, 4) and (8, 16), both types checked, bf16
+   timed with the cut ``plan_bf16`` picks there ("local-heads" rows), and
+   checked only at the model-axis loop's (32, 4) and its online EgoMCQ's
+   (20, 4).
 4. int8 kernels vs plain: K3 (the attention with its output quantized per
    token, both modes), K4 (LayerNorm -> int8, D=1024) and K5 (QuickGELU ->
    int8, D=4096) at (B=2, T=4) and the serving shape (B=8, T=16, N=256,
@@ -206,15 +211,42 @@ failed check raises and the script exits non-zero:
 24. doctor: ``cli.doctor.main()`` on the card: usable, the card among its
    devices, every kernel library of ``csrc/`` in the build directory,
    rc 0.
+25. train-tp (after "profile"): the mesh's model axis. ``nccl`` refuses two
+   ranks on one card, so two ``gloo`` processes (this script with
+   ``--tp-worker``) share it as one model group (model=2, data=1), each
+   holding its half of the heads and hidden units of the full-width
+   TimeSformer-L and CLIP text tower (``parallel.tensor.shard_lavila``)
+   at phase 16's batch. The f32 step (TF32 off) against rank 0's
+   one-process step: the backbone's outputs within 1e-5 of their largest
+   value, loss terms within rtol 1e-4, gradients within 1e-4 x max(1,
+   grad_norm), and within 1e-5 x max(1, grad_norm) with the object
+   decoder's ReLU pattern of the one-process step imposed (a unit whose
+   input lies within rounding of zero may change sign and turn its whole
+   backward signal on or off; the line counts them, names the worst
+   parameter, and shows the one-process step again and with the row-split
+   sums made in halves), the updated parameters the same bits on both
+   ranks; the bf16 kernel route's loss terms within rtol 1e-4 and
+   gradients within cosine 0.999 of the one-process bf16 step's; K1 and K2
+   24 times a step a rank, on 8 heads, every (mode, H, B, T) they launch
+   at in this phase and the next held against the plain version in phase
+   3; backend, step ms, each rank's peak memory beside the one-process
+   step's. A collective that gloo refuses fails the phase with the rank's
+   log.
+26. train-loop-tp: ``cli.train.main --model_parallel 2`` on the same two
+   ranks for 3 steps (``--num_workers 1``, the backbone in f32) against
+   the same loop in one process: losses within rtol 1e-4; the online
+   EgoMCQ, which both ranks run in bf16, with its similarities within 5e-3
+   and the same picks but at near-ties.
 
 Then one ``{"kernels": [...]}`` line, each kernel's launches summed over
-phases 5, 6, 10, 12-20 and 22, and, last, ``{"ok": true, "device":
+phases 5, 6, 10, 12-20, 22, 25 and 26, and, last, ``{"ok": true, "device":
 {...}}``. Time attention is zero-initialised in the model (its qkv feeds
 the kernel zeros), so the smoke gives its weights seeded N(0, 0.02) values.
 """
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import os
@@ -373,39 +405,40 @@ def phase_build():
     say("build", total_seconds=round(time.perf_counter() - t0, 3))
 
 
-def _sdpa_inputs(qkv, ck, cv, mode):
+def _sdpa_inputs(qkv, ck, cv, mode, heads=HEADS):
     """Head-major q and [CLS | group] k, v for F.scaled_dot_product_attention."""
     import torch
 
     b, t, n, _ = qkv.shape
-    q, k, v = qkv.reshape(b, t, n, 3, HEADS, DH).unbind(3)
+    q, k, v = qkv.reshape(b, t, n, 3, heads, DH).unbind(3)
     perm, g, w = ((0, 1, 3, 2, 4), t, n) if mode == "space" else ((0, 2, 3, 1, 4), n, t)
 
     def grp(z):
-        return z.permute(*perm).reshape(b * g, HEADS, w, DH)
+        return z.permute(*perm).reshape(b * g, heads, w, DH)
 
     def with_cls(c, z):
-        c = c.reshape(b, 1, HEADS, 1, DH).expand(b, g, HEADS, 1, DH).reshape(b * g, HEADS, 1, DH)
+        c = c.reshape(b, 1, heads, 1, DH).expand(b, g, heads, 1, DH).reshape(b * g, heads, 1, DH)
         return torch.cat([c, grp(z)], dim=2).contiguous()
 
     return grp(q).contiguous(), with_cls(ck, k), with_cls(cv, v)
 
 
-def _bound_ms(qkv, mode, peaks, quant_out=False) -> tuple[float, str]:
+def _bound_ms(qkv, mode, peaks, quant_out=False, heads=HEADS) -> tuple[float, str]:
     b, t, n, d3 = qkv.shape
+    d = d3 // 3
     es = qkv.element_size()
     g, w = (t, n) if mode == "space" else (n, t)
     # the output: D values of the input type a token, or D codes and a scale
-    out_bytes = b * t * n * ((D + 4) if quant_out else D * es)
-    nbytes = qkv.numel() * es + 3 * b * D * es + out_bytes + b * g * HEADS * (2 + DH) * 4
+    out_bytes = b * t * n * ((d + 4) if quant_out else d * es)
+    nbytes = qkv.numel() * es + 3 * b * d * es + out_bytes + b * g * heads * (2 + DH) * 4
     # QK and PV over w + 1 keys for every patch query, and the CLS query over w keys per group
-    flops = 4 * b * t * n * HEADS * DH * (w + 2)
+    flops = 4 * b * t * n * heads * DH * (w + 2)
     by_bytes = nbytes / peaks["bytes"]
     by_ops = flops / peaks[str(qkv.dtype).removeprefix("torch.")]
     return 1e3 * max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
 
 
-def _kernel_vs_plain(qkv, ck, cv, cq, mode):
+def _kernel_vs_plain(qkv, ck, cv, cq, mode, heads=HEADS):
     """The kernel against the plain version in f32 on the same inputs ->
     (the largest error of the patch output and the merged CLS output,
     whether both are finite, the plain patch output)."""
@@ -413,11 +446,11 @@ def _kernel_vs_plain(qkv, ck, cv, cq, mode):
 
     from helping_hand_for_egocentric_videos_torch.ops import divided_attention as da
 
-    out, parts = da.divided_patch_attention(qkv, ck, cv, cq, mode=mode, heads=HEADS)
-    cls = da.merge_cls_partials(*parts, cq, ck, cv, HEADS)
+    out, parts = da.divided_patch_attention(qkv, ck, cv, cq, mode=mode, heads=heads)
+    cls = da.merge_cls_partials(*parts, cq, ck, cv, heads)
     f32 = [z.float() for z in (qkv, ck, cv, cq)]
-    ref, ref_parts = da.divided_patch_attention_ref(*f32, mode=mode, heads=HEADS)
-    ref_cls = da.merge_cls_partials(*ref_parts, *f32[3:], *f32[1:3], HEADS)
+    ref, ref_parts = da.divided_patch_attention_ref(*f32, mode=mode, heads=heads)
+    ref_cls = da.merge_cls_partials(*ref_parts, *f32[3:], *f32[1:3], heads)
     torch.cuda.synchronize()
     err = max((out.float() - ref).abs().max().item(), (cls - ref_cls).abs().max().item())
     return err, bool(torch.isfinite(out).all()) and bool(torch.isfinite(cls).all()), ref
@@ -497,8 +530,8 @@ def phase_kernels(device, peaks):
     return report
 
 
-def _plan(w: int) -> dict:
-    """The bf16 kernel's cut of a group of w rows at H=16, dh=64."""
+def _plan(w: int, heads: int = HEADS) -> dict:
+    """The bf16 kernel's cut of a group of w rows at ``heads`` heads, dh=64."""
     import ctypes
 
     from helping_hand_for_egocentric_videos_torch.ops._build import library
@@ -507,8 +540,8 @@ def _plan(w: int) -> dict:
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
     fn.restype = ctypes.c_int
     plan = (ctypes.c_longlong * 4)()
-    if fn(w, HEADS, DH, plan):
-        raise RuntimeError(f"no plan for a group of {w} rows")
+    if fn(w, heads, DH, plan):
+        raise RuntimeError(f"no plan for a group of {w} rows at {heads} heads")
     return dict(zip(("heads_a_block", "warps_a_block", "streamed", "smem_bytes"), plan))
 
 
@@ -541,6 +574,86 @@ def _time_space_long(device, peaks, gen) -> dict:
     del qkv, ck, cv, cq, q, k, v
     torch.cuda.empty_cache()
     return res
+
+
+# K1/K2 on the local heads of TimeSformer-L split over 2 and 4 ranks (the
+# model axis): (B, T) of the train step and of serving, timed
+LOCAL_HEADS, LOCAL_SHAPES = (8, 4), ((16, 4), (8, 16))
+
+
+def _tp_loop_shapes() -> tuple:
+    """(B, T) that "train-loop-tp" gives K1/K2 on each rank, checked only:
+    the loop's 32 clips (f32, ``TP_LOOP_SET``) and its online EgoMCQ's
+    forwards of 20 (bf16)."""
+    return (2 * LOOP_ITEMS, LOOP_T), (5 * LOOP_EVAL_ITEMS_PER_FORWARD, LOOP_T)
+
+
+def _local_vs_plain(b, t, heads, mode, gen, device):
+    """K1 or K2 at ``heads`` heads against the plain version in f32 and in
+    bf16 on fresh inputs, raising where they disagree -> (errors by type,
+    the bf16 inputs)."""
+    import torch
+
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).removeprefix("torch.")
+        qkv = torch.randn(b, t, N, 3 * heads * DH, generator=gen, device=device).to(dtype)
+        ck, cv, cq = (torch.randn(b, heads * DH, generator=gen, device=device).to(dtype) for _ in range(3))
+        err, finite, _ = _kernel_vs_plain(qkv, ck, cv, cq, mode, heads)
+        errs[dname] = err
+        if not finite or not err <= TOL[dname]:
+            raise AssertionError(f"{mode} kernel at {heads} heads, (B, T) = ({b}, {t}), {dname}, "
+                                 f"disagrees with the plain version: {err}")
+    return errs, (qkv, ck, cv, cq)
+
+
+def _time_local_heads(device, peaks) -> list[dict]:
+    """"kernel-timing" at local heads: K1 and K2 at H = 8 and 4 (dh 64, N
+    256), (16, 4) and (8, 16), in bf16: checked against the plain version
+    (and in f32), then the kernel's device time, CUDA events, the plain
+    version, one SDPA call and the bound, beside the cut of the group that
+    ``plan_bf16`` picks at that head count. Then checked only, in both
+    types, at ``_tp_loop_shapes``: every (B, T, H) of the model-axis
+    phases is held against the plain version ("train-tp" asserts it from
+    the shapes its ranks launched)."""
+    import torch
+    import torch.nn.functional as F
+
+    from helping_hand_for_egocentric_videos_torch.ops import divided_attention as da
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 30)
+    rows = []
+    for heads in LOCAL_HEADS:
+        for b, t in _tp_loop_shapes():
+            for mode in ("space", "time"):
+                errs, _ = _local_vs_plain(b, t, heads, mode, gen, device)
+                row = {"mode": mode, "H": heads, "B": b, "T": t, "max_abs_err": errs["bfloat16"],
+                       "max_abs_err_f32": errs["float32"], "tolerance": TOL["bfloat16"],
+                       "tolerance_f32": TOL["float32"], "at": "train-loop-tp"}
+                say("kernel-vs-plain", **row)
+                rows.append(row)
+                torch.cuda.empty_cache()
+        for b, t in LOCAL_SHAPES:
+            for mode in ("space", "time"):
+                errs, (qkv, ck, cv, cq) = _local_vs_plain(b, t, heads, mode, gen, device)
+                q, k, v = _sdpa_inputs(qkv, ck, cv, mode, heads)
+
+                def run(qkv=qkv, ck=ck, cv=cv, cq=cq, mode=mode, heads=heads):
+                    return da.divided_patch_attention(qkv, ck, cv, cq, mode=mode, heads=heads)
+
+                res = {"mode": mode, "H": heads, "B": b, "T": t, "max_abs_err": errs["bfloat16"],
+                       "max_abs_err_f32": errs["float32"], "tolerance": TOL["bfloat16"],
+                       "ms": device_ms(run, 20, ATTENTION_KERNEL), "events_ms": cuda_ms(run, 20),
+                       "plain_ms": cuda_ms(lambda: da.divided_patch_attention_ref(qkv, ck, cv, cq, mode=mode,
+                                                                                  heads=heads), 5),
+                       "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20),
+                       "plan": _plan(N if mode == "space" else t, heads)}
+                res["bound_ms"], res["bound_by"] = _bound_ms(qkv, mode, peaks, heads=heads)
+                say("kernel-timing", at="local-heads", **res)
+                rows.append(res)
+                del qkv, ck, cv, cq, q, k, v
+                torch.cuda.empty_cache()
+    return rows
 
 
 def _quant_check(got, want) -> dict:
@@ -1918,6 +2031,512 @@ def phase_train_loop_dist(card, fixture, root: Path, ref_losses: dict):
     return run["launches"]
 
 
+# ---------------------------------------------------------------- the model axis
+TP_RANKS, TP_TIMED = 2, 2  # ranks of one model group on the card; timed steps
+TP_MCQ = 8  # EgoMCQ items of the loop's fixture: 2 eval forwards of 20 clips (each moves ~6 GB through gloo)
+TP_GRAD_COS = 0.999  # bf16 split step against the one-process bf16 step: the gradients' cosine
+TP_LOSSES = ("total_loss", "nce_loss", "box_loss", "word_loss")  # the loss terms compared in bf16
+TP_BF16_LOSS_RTOL = 1e-4  # bf16 split step against the one-process bf16 step: each loss term
+# f32 split step against one process: the backbone's outputs (video grid,
+# text feature map), the largest difference over the largest value
+TP_FEATURE_RTOL = 1e-5
+# f32 split step against one process, the decoder's ReLU pattern the same:
+# the gradients within this x max(1, grad_norm)
+TP_MASKED_GRAD_RTOL = 1e-5
+# the loops compared in f32: in bf16 the split sum rounds once where one GEMM
+# rounds once, a last-bit difference that Adam's first update (+-lr a weight)
+# turns into 2.5e-4 of the loss by step 2 (a rehearsal on the CPU, tiny backbone)
+TP_LOOP_SET = "parallel.backbone_dtype=float32"
+# the loop's online EgoMCQ runs in bf16 (as JAX's): split against one process,
+# the largest difference of a similarity, set before the first run on the card;
+# an item may pick another clip only where its two best are closer than twice that
+TP_SIM_ATOL = 5e-3
+
+
+@contextlib.contextmanager
+def _egomcq_sims(prefix: Path):
+    """Keep the similarity rows of every online EgoMCQ of a loop in this
+    process (``run_egomcq``'s ``out_sims``), as ``<prefix>_<i>.npz``; the
+    run is otherwise unchanged. Yields the list of files written."""
+    from helping_hand_for_egocentric_videos_torch.train import pretrain as tpre
+
+    real, paths = tpre.run_egomcq, []
+
+    def probe(model, dataset, **kw):
+        paths.append(f"{prefix}_{len(paths)}.npz")
+        return real(model, dataset, out_sims=paths[-1], **kw)
+
+    tpre.run_egomcq = probe
+    try:
+        yield paths
+    finally:
+        tpre.run_egomcq = real
+
+
+def _egomcq_agree(got: str, want: str) -> dict:
+    """Two runs' EgoMCQ similarity rows: the largest difference, and the
+    items whose picked clip differs with the gap between the one-process
+    run's two best clips there."""
+    g, w = np.load(got)["sims"], np.load(want)["sims"]
+    err = float(np.abs(g - w).max())
+    top2 = np.sort(w, axis=1)[:, -2:]
+    flips = np.nonzero(g.argmax(1) != w.argmax(1))[0]
+    gaps = (top2[flips, 1] - top2[flips, 0]).tolist()
+    return {"sims_max_abs_err": err, "sims_atol": TP_SIM_ATOL, "items": int(w.shape[0]),
+            "items_picking_another_clip": flips.tolist(), "their_top2_gaps": gaps,
+            "ok": err <= TP_SIM_ATOL and all(gap <= 2 * err for gap in gaps)}
+
+
+def _tp_step(dcfg, lcfg, tcfg, decoder, backbone, batch, noun_dict, device, dp=None, mp=None):
+    """One step, dropout off, from a copy of ``decoder``; with ``dp`` and
+    ``mp`` this rank's rows and this rank's shard ``backbone``. -> (metrics,
+    gradients by name, the updated parameters flat, the state, the step)."""
+    import copy
+
+    import torch
+
+    from helping_hand_for_egocentric_videos_torch.train import TrainState, make_train_step
+
+    state = TrainState.create(copy.deepcopy(decoder), tcfg, device=device)
+    step = make_train_step(dcfg, lcfg, tcfg, dist=dp, mp=mp)
+    if dp is not None:
+        batch = {k: v[dp.rows(v.shape[0])] for k, v in batch.items()}
+    state, m = step(state, backbone, batch, noun_dict)
+    grads = {n: p.grad.detach().clone() for n, p in state.decoder.named_parameters() if p.grad is not None}
+    flat = torch.cat([p.detach().reshape(-1) for p in state.decoder.parameters()])
+    return {k: float(v) for k, v in m.items()}, grads, flat, state, step
+
+
+def _steps_ms(state, step, backbone, batch, noun_dict, n: int) -> float | None:
+    """The mean ms of ``n`` more steps of a step that has run (warm),
+    between CUDA events (None on the CPU, where the phases are rehearsed)."""
+    import torch
+
+    if next(state.decoder.parameters()).device.type != "cuda":
+        return None
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        state, _ = step(state, backbone, batch, noun_dict)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+@contextlib.contextmanager
+def _recording_features(into: list):
+    """Keep a copy of the backbone's outputs (video grid, text feature map)
+    of every train step run within, in ``into``, in host memory (the
+    peaks of device memory stay the steps'); the steps are otherwise
+    unchanged."""
+    from helping_hand_for_egocentric_videos_torch.train import step as tstep
+
+    real = tstep.backbone_features
+
+    def probe(*args, **kw):
+        out = real(*args, **kw)
+        into.append([z.detach().to("cpu", copy=True) for z in out])
+        return out
+
+    tstep.backbone_features = probe
+    try:
+        yield into
+    finally:
+        tstep.backbone_features = real
+
+
+@contextlib.contextmanager
+def _row_split_in_halves(backbone):
+    """Within: every product of a row-split weight of the whole ``backbone``
+    (``spec_for_param`` 1: proj, mlp_fc2, wo, mlp_proj) is the sum of its
+    two halves' f32 partial products, then the bias, the order in which two
+    model ranks sum it, in one process; the column-split products and the
+    attention keep the one-card shapes. Not for the counted runs. Yields
+    a list that grows by one a product made so."""
+    import torch.nn.functional as F
+
+    from helping_hand_for_egocentric_videos_torch.parallel import spec_for_param
+
+    rows = {id(p) for n, p in backbone.named_parameters() if spec_for_param(n) == 1}
+    real, made = F.linear, []
+
+    def halves(x, w, b=None):
+        if id(w) not in rows:
+            return real(x, w, b)
+        made.append(1)
+        k = w.shape[1] // 2
+        out = real(x[..., :k], w[:, :k]) + real(x[..., k:], w[:, k:])
+        return out if b is None else out + b
+
+    F.linear = halves
+    try:
+        yield made
+    finally:
+        F.linear = real
+
+
+@contextlib.contextmanager
+def _recording_attention_shapes(into: set):
+    """Add (mode, heads, B, T, dtype) of every K1/K2 call of the visual
+    tower made within to ``into``; the calls are otherwise unchanged."""
+    from helping_hand_for_egocentric_videos_torch.models import spacetime_vit as tsv
+
+    real = tsv.divided_patch_attention
+
+    def probe(qkv, *args, mode, heads, **kw):
+        into.add((mode, heads, qkv.shape[0], qkv.shape[1], str(qkv.dtype).removeprefix("torch.")))
+        return real(qkv, *args, mode=mode, heads=heads, **kw)
+
+    tsv.divided_patch_attention = probe
+    try:
+        yield into
+    finally:
+        tsv.divided_patch_attention = real
+
+
+@contextlib.contextmanager
+def _given_features(features, device):
+    """Within: the train step takes ``features`` (video grid, text feature
+    map) on ``device`` in place of its backbone's forward; the rest of the
+    step is unchanged."""
+    from helping_hand_for_egocentric_videos_torch.train import step as tstep
+
+    real, given = tstep.backbone_features, tuple(z.to(device) for z in features)
+    tstep.backbone_features = lambda *args, **kw: given
+    try:
+        yield
+    finally:
+        tstep.backbone_features = real
+
+
+@contextlib.contextmanager
+def _relu_pattern(record: list | None = None, impose: list | None = None):
+    """Within: each ``torch.relu`` call (the object decoder's) adds its
+    pattern (x > 0) to ``record``; or, with ``impose``, passes x where the
+    pattern of the same call, in order, holds (x * pattern), so that its
+    backward takes that pattern whatever the sign of x."""
+    import torch
+
+    real, given = torch.relu, iter(impose or ())
+
+    def relu(x):
+        if impose is not None:
+            return x * next(given)
+        if record is not None:
+            record.append(x.detach() > 0)
+        return real(x)
+
+    torch.relu = relu
+    try:
+        yield
+    finally:
+        torch.relu = real
+
+
+def _grad_gap(got: dict, want: dict) -> dict:
+    """Two steps' gradients: the largest difference, the parameter it is
+    in, and that parameter's largest gradient."""
+    errs = {n: float((got[n] - g).abs().max()) for n, g in want.items()}
+    worst = max(errs, key=errs.get)
+    return {"max_abs_err": errs[worst], "param": worst, "param_max_abs_grad": float(want[worst].abs().max())}
+
+
+def _feature_gap(got: list, want: list) -> dict:
+    """Two steps' backbone outputs: each one's largest difference over its
+    largest value."""
+    return {name: float((g - w).abs().max() / w.abs().max())
+            for name, g, w in zip(("video_grid", "text_fmap"), got[0], want[0])}
+
+
+def _peak_gb(device):
+    import torch
+
+    return torch.cuda.max_memory_allocated(device) / 1e9 if device.type == "cuda" else None
+
+
+def tp_worker(rank: int, port: int, out: str, meta: str, data: str, device: str = "cuda",
+              backbone_name: str = "timesformer_large"):
+    """One of the ``TP_RANKS`` ``gloo`` ranks of "train-tp" and
+    "train-loop-tp", all on ``cuda:0`` (``nccl`` refuses two ranks on one
+    card): one model group and one data group. Writes its results to
+    ``out/rank<r>.json``; rank 0 also holds the one-process references.
+    ``device="cpu"`` with a small ``backbone_name`` rehearses it on the CPU
+    (no times, no memory)."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from helping_hand_for_egocentric_videos_torch.cli import train as cli_train
+    from helping_hand_for_egocentric_videos_torch.models.spacetime_vit import block_routes
+    from helping_hand_for_egocentric_videos_torch.parallel import make_groups, shard_lavila
+    from helping_hand_for_egocentric_videos_torch.train import TrainConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # the loop's cli.train reads these and reuses the group started here
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(TP_RANKS), LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    device = torch.device(device, 0) if device == "cuda" else torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank, world_size=TP_RANKS)
+    dp, mp = make_groups(TP_RANKS, TP_RANKS, device)
+    res = {"rank": rank, "backend": dist.get_backend(), "data_rank_world": [dp.rank, dp.world],
+           "model_rank_size": [mp.rank, mp.size]}
+
+    # ---- train-tp
+    lcfg, backbone, dcfg, decoder, batch, noun_dict = build_train_inputs(device, backbone_name)
+    shard = shard_lavila(backbone, lcfg, mp)
+    res["local_heads"] = block_routes(lcfg.visual, TRAIN_T, N, mp)["heads"]
+    res["shard_qkv_rows"] = shard.visual.blocks[0].attn.qkv.weight.shape[0]
+    f32 = TrainConfig(lr=TRAIN_LR, backbone_dtype=torch.float32)
+    bf16 = replace(f32, backbone_dtype=torch.bfloat16)
+    one = {}
+    cuda = device.type == "cuda"
+    feats, relus = {}, {}
+    if rank == 0:  # the one-process references, outside the counted window
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+        with _recording_features(feats.setdefault("one", [])), _relu_pattern(record=relus.setdefault("one", [])):
+            one["f32"] = _tp_step(dcfg, lcfg, f32, decoder, backbone, batch, noun_dict, device)
+        one["bf16"] = _tp_step(dcfg, lcfg, bf16, decoder, backbone, batch, noun_dict, device)
+        res["one_process_step_ms"] = _steps_ms(*one["bf16"][3:], backbone, batch, noun_dict, TP_TIMED)
+        res["one_process_peak_memory_gb"] = _peak_gb(device)
+        # what the f32 comparison reads besides the split: the same step
+        # again, and the step with the row-split sums made in halves here
+        wm, wg = one["f32"][:2]
+        again = _tp_step(dcfg, lcfg, f32, decoder, backbone, batch, noun_dict, device)
+        res["f32_repeat_grad_worst"] = _grad_gap(again[1], wg)
+        with _row_split_in_halves(backbone) as made, _recording_features(feats.setdefault("halves", [])):
+            halves = _tp_step(dcfg, lcfg, f32, decoder, backbone, batch, noun_dict, device)
+        res["halves_products"] = len(made)
+        res["f32_halves_grad_worst"] = _grad_gap(halves[1], wg)
+        res["f32_halves_rel_err"] = {k: abs(halves[0][k] - wm[k]) / max(abs(wm[k]), 1e-12) for k in wm}
+        del again, halves
+    del backbone
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    dist.barrier()
+    # ---- the main path: counts set to 0 just before, read just after
+    shapes = set()
+    reset_counts()
+    with _recording_attention_shapes(shapes):
+        with _recording_features(feats.setdefault("split", [])):
+            tp32 = _tp_step(dcfg, lcfg, f32, decoder, shard, batch, noun_dict, device, dp, mp)
+        tp16 = _tp_step(dcfg, lcfg, bf16, decoder, shard, batch, noun_dict, device, dp, mp)
+        res["step_ms"] = _steps_ms(*tp16[3:], shard, batch, noun_dict, TP_TIMED)
+    if cuda:
+        torch.cuda.synchronize(device)
+    res["launches"] = read_counts()
+    # ----
+    res["steps_counted"] = 2 + TP_TIMED
+    res["peak_memory_gb"] = _peak_gb(device)
+    for name, run in (("f32", tp32), ("bf16", tp16)):  # the replicated decoders after the update
+        copies = [torch.empty_like(run[2]) for _ in range(TP_RANKS)]
+        dist.all_gather(copies, run[2])
+        res[f"params_equal_on_every_rank_{name}"] = all(torch.equal(c, copies[0]) for c in copies)
+    if rank == 0:
+        wm, wg = one["f32"][:2]
+        res["f32_metrics"], res["one_process_f32_metrics"] = tp32[0], wm
+        res["f32_rel_err"] = {k: abs(tp32[0][k] - wm[k]) / max(abs(wm[k]), 1e-12) for k in wm}
+        res["f32_grad_max_abs_err"] = max(float((tp32[1][n] - g).abs().max()) for n, g in wg.items())
+        res["f32_grad_tol"] = 1e-4 * max(1.0, wm["grad_norm"])
+        res["f32_grad_worst"] = _grad_gap(tp32[1], wg)
+        res["f32_features_rel_err"] = _feature_gap(feats["split"], feats["one"])
+        res["f32_halves_features_rel_err"] = _feature_gap(feats["halves"], feats["one"])
+        res["bf16_rel_err"] = {k: abs(tp16[0][k] - one["bf16"][0][k]) / max(abs(one["bf16"][0][k]), 1e-12)
+                               for k in one["bf16"][0]}
+        # the decoder alone on the split's features: as it is (the split
+        # step's gradients again), and with the one-process step's ReLU
+        # pattern imposed (what is left without the units whose input lies
+        # within rounding of zero)
+        with _given_features(feats["split"][0], device), _relu_pattern(record=relus.setdefault("split", [])):
+            replay = _tp_step(dcfg, lcfg, f32, decoder, None, batch, noun_dict, device)
+        with _given_features(feats["split"][0], device), _relu_pattern(impose=relus["one"]):
+            masked = _tp_step(dcfg, lcfg, f32, decoder, None, batch, noun_dict, device)
+        res["f32_replay_grad_max_abs_err"] = _grad_gap(replay[1], tp32[1])["max_abs_err"]
+        res["relu_units_flipped"] = [int((a != b).sum()) for a, b in zip(relus["one"], relus["split"])]
+        res["f32_masked_grad_worst"] = _grad_gap(masked[1], wg)
+        res["f32_masked_grad_tol"] = TP_MASKED_GRAD_RTOL * max(1.0, wm["grad_norm"])
+        del replay, masked
+        res["same_grad_names"] = set(tp32[1]) == set(wg) == set(tp16[1])
+        g16, w16 = (torch.cat([g[n].reshape(-1) for n in sorted(g)]).double() for g in (tp16[1], one["bf16"][1]))
+        res["bf16_grad_cosine"] = float(g16 @ w16 / (g16.norm() * w16.norm()))
+        res["bf16_total_loss"] = {"split": tp16[0]["total_loss"], "one_process": one["bf16"][0]["total_loss"]}
+    del tp32, tp16, one, shard, feats, relus
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+
+    # ---- train-loop-tp: counts set to 0 just before, read just after
+    argv = _loop_argv(meta, data, Path(out) / "runs", "tp", "--max_steps", str(LOOP_REF_STEPS), "--num_workers",
+                      "1", "--model_parallel", str(TP_RANKS), "--device", device.type, "--backbone", backbone_name,
+                      *_loop_sets(TP_LOOP_SET))
+    t0 = time.perf_counter()
+    with _egomcq_sims(Path(out) / f"sims_rank{rank}") as sims, _recording_attention_shapes(shapes):
+        reset_counts()
+        state, best = cli_train.main(argv)
+        if cuda:
+            torch.cuda.synchronize(device)
+        res["loop"] = {"launches": read_counts(), "steps": state.step, "best": best, "sims": sims,
+                       "seconds": time.perf_counter() - t0, "peak_memory_gb": _peak_gb(device)}
+    # ----
+    res["kernel_shapes"] = sorted(shapes)
+    dist.destroy_process_group()
+    Path(out, f"rank{rank}.json").write_text(json.dumps(res))
+
+
+def _run_tp_workers(out: Path, fixture, device: str, backbone_name: str, timeout: float = 900) -> list[dict]:
+    """Start the ``TP_RANKS`` ranks of ``tp_worker`` and wait for them;
+    a rank that fails stops the others, and its log's tail is raised."""
+    meta, data = fixture
+    port = _free_port()
+    logs = [open(out / f"rank{r}.log", "w") for r in range(TP_RANKS)]
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--tp-worker", str(r), str(port),
+                               str(out), meta, data, device, backbone_name], stdout=logs[r],
+                              stderr=subprocess.STDOUT)
+             for r in range(TP_RANKS)]
+    try:
+        deadline = time.time() + timeout
+        while any(p.poll() is None for p in procs):
+            if any(p.returncode not in (None, 0) for p in procs) or time.time() > deadline:
+                break
+            time.sleep(1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        tail = (out / f"rank{bad[0]}.log").read_text()[-3000:]
+        raise AssertionError(f"train-tp: rank {bad[0]} of {TP_RANKS} failed (rc {procs[bad[0]].returncode}); "
+                             f"its log ends:\n{tail}")
+    return [json.loads((out / f"rank{r}.json").read_text()) for r in range(TP_RANKS)]
+
+
+def phase_train_tp(card, root: Path, device="cuda", backbone_name="timesformer_large",
+                   checked: set | None = None) -> dict:
+    """"train-tp" and "train-loop-tp": the frozen TimeSformer-L + CLIP text
+    tower split over ``TP_RANKS`` ``gloo`` ranks on the one card (model=2,
+    data=1), each holding half of the heads and hidden units. "train-tp":
+    "train"'s batch (16 clips, 4 frames), f32 with TF32 off against rank 0's
+    one-process step (loss terms within rtol 1e-4, gradients within 1e-4 x
+    max(1, grad_norm)), the updated parameters the same bits on both
+    ranks, the bf16 kernel route's gradients within cosine 0.999 of the
+    one-process bf16 step's, K1 and K2 24 times a step on 8 heads a rank.
+    "train-loop-tp": ``cli.train.main --model_parallel 2`` for 3 steps on
+    the loop's fixture cut to 48 rows and ``TP_MCQ`` EgoMCQ items (the
+    split forwards move their activations through host memory),
+    ``--num_workers 1``, the backbone in f32
+    (``TP_LOOP_SET``), against the same loop in one process first: the
+    logged losses within rtol 1e-4; the online EgoMCQ on both ranks, in
+    bf16 as the loop's ``EvalModel`` runs it: each rank's similarity rows
+    within ``TP_SIM_ATOL`` of the one-process run's, and the same clip
+    picked for every item but where the one-process run's two best clips
+    are closer than twice the largest difference (the accuracies are
+    printed beside). -> launches of the main paths: the one-process loop
+    and both ranks'."""
+    from types import SimpleNamespace
+
+    from helping_hand_for_egocentric_videos_torch.models import lavila
+
+    out = root / "tp"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    lcfg = getattr(lavila, f"{backbone_name}_config")(TRAIN_T)
+    fixture = meta, data = write_egoclip_fixture(out / "egoclip", rows=LOOP_ITEMS * LOOP_REF_STEPS, mcq=TP_MCQ,
+                                                 noun_width=lcfg.text.width)
+    small = [] if backbone_name == "timesformer_large" else ["--device", device, "--backbone", backbone_name]
+    with _egomcq_sims(out / "sims_one") as ref_sims:
+        ref = _run_loop(_loop_argv(meta, data, out / "runs", "one", "--max_steps", str(LOOP_REF_STEPS),
+                                   "--num_workers", "1", *small, *_loop_sets(TP_LOOP_SET)))
+    ref_losses, ref_val = _losses(ref["train"]), ref["val"]
+    t0 = time.perf_counter()
+    ranks = _run_tp_workers(out, fixture, device, backbone_name)
+    seconds = time.perf_counter() - t0
+    per_step = launches_per_forward(SimpleNamespace(lavila_cfg=lcfg, int8=False))
+    r0 = ranks[0]
+    step_launches_ok = all(r["launches"] == {k: v * r["steps_counted"] for k, v in per_step.items()} for r in ranks)
+    res = {"card": card, "backend": [r["backend"] for r in ranks], "ranks": TP_RANKS, "B": TRAIN_B, "T": TRAIN_T,
+           "model_rank_size": [r["model_rank_size"] for r in ranks],
+           "data_rank_world": [r["data_rank_world"] for r in ranks], "local_heads": [r["local_heads"] for r in ranks],
+           "shard_qkv_rows": [r["shard_qkv_rows"] for r in ranks],
+           "f32_rel_err": r0["f32_rel_err"], "rtol": 1e-4, "f32_grad_max_abs_err": r0["f32_grad_max_abs_err"],
+           "f32_grad_tol": r0["f32_grad_tol"], "f32_grad_worst": r0["f32_grad_worst"],
+           "f32_repeat_grad_worst": r0["f32_repeat_grad_worst"], "f32_halves_grad_worst": r0["f32_halves_grad_worst"],
+           "f32_halves_rel_err": r0["f32_halves_rel_err"], "halves_products": r0["halves_products"],
+           "f32_features_rel_err": r0["f32_features_rel_err"], "features_rtol": TP_FEATURE_RTOL,
+           "f32_halves_features_rel_err": r0["f32_halves_features_rel_err"],
+           "f32_replay_grad_max_abs_err": r0["f32_replay_grad_max_abs_err"],
+           "relu_units_flipped": r0["relu_units_flipped"], "f32_masked_grad_worst": r0["f32_masked_grad_worst"],
+           "f32_masked_grad_tol": r0["f32_masked_grad_tol"],
+           "same_grad_names": r0["same_grad_names"],
+           "params_equal_on_every_rank": {k: [r[f"params_equal_on_every_rank_{k}"] for r in ranks]
+                                          for k in ("f32", "bf16")},
+           "bf16_grad_cosine": r0["bf16_grad_cosine"], "bf16_grad_cosine_limit": TP_GRAD_COS,
+           "bf16_total_loss": r0["bf16_total_loss"],
+           "bf16_rel_err": {k: r0["bf16_rel_err"][k] for k in TP_LOSSES}, "bf16_rtol": TP_BF16_LOSS_RTOL,
+           "kernel_shapes": sorted({tuple(x) for r in ranks for x in r["kernel_shapes"]}),
+           "f32_metrics": r0["f32_metrics"],
+           "one_process_f32_metrics": r0["one_process_f32_metrics"],
+           "launches": [r["launches"] for r in ranks], "launches_per_step": per_step,
+           "steps_counted": r0["steps_counted"],
+           "step_ms": [r["step_ms"] for r in ranks], "one_process_step_ms": r0["one_process_step_ms"],
+           "peak_memory_gb": [r["peak_memory_gb"] for r in ranks],
+           "one_process_peak_memory_gb": r0["one_process_peak_memory_gb"], "timed_steps": TP_TIMED,
+           "phase_seconds": seconds}
+    res["unchecked_kernel_shapes"] = None if checked is None else [x for x in res["kernel_shapes"]
+                                                                   if tuple(x[:4]) not in checked]
+    say("train-tp", **res)
+    if res["unchecked_kernel_shapes"]:
+        raise AssertionError(f"train-tp: K1/K2 launched at (mode, H, B, T, dtype) never held against the plain "
+                             f"version: {res['unchecked_kernel_shapes']}")
+    ok = (max(res["f32_rel_err"].values()) <= 1e-4 and res["f32_grad_max_abs_err"] <= res["f32_grad_tol"]
+          and max(res["f32_features_rel_err"].values()) <= TP_FEATURE_RTOL
+          and res["f32_masked_grad_worst"]["max_abs_err"] <= res["f32_masked_grad_tol"]
+          and max(res["bf16_rel_err"].values()) <= TP_BF16_LOSS_RTOL
+          and res["same_grad_names"] and all(all(v) for v in res["params_equal_on_every_rank"].values())
+          and res["bf16_grad_cosine"] >= TP_GRAD_COS and step_launches_ok
+          and res["local_heads"] == [lcfg.visual.heads // TP_RANKS] * TP_RANKS
+          and all(b == "gloo" for b in res["backend"]))
+    if not ok:
+        raise AssertionError("the split step disagrees with the one-process step or launched otherwise (train-tp line)")
+
+    exp = out / "runs" / "tp"
+    losses = _losses(_jsonl(exp / "train_metrics.jsonl"))
+    val = _jsonl(exp / "val_metrics.jsonl")
+    rel = {s: abs(losses[s] - ref_losses[s]) / abs(ref_losses[s]) for s in ref_losses if s in losses}
+
+    def accs(rows):
+        return [{k: v for k, v in r.items() if k != "time"} for r in rows]
+
+    evals = [{"egomcq/n_items": r["egomcq/n_items"]} for r in val]
+    want = {k: v * (LOOP_REF_STEPS + sum(-(-int(r["egomcq/n_items"]) // LOOP_EVAL_ITEMS_PER_FORWARD) for r in evals))
+            for k, v in per_step.items()}
+    agree = [_egomcq_agree(r["loop"]["sims"][-1], ref_sims[-1]) for r in ranks]
+    loop = {"card": card, "ranks": TP_RANKS, "steps": [r["loop"]["steps"] for r in ranks], "total_loss": losses,
+            "one_process_total_loss": ref_losses, "rel_err": rel, "rtol": 1e-4, "val": accs(val),
+            "one_process_val": accs(ref_val), "accuracies_equal": accs(val) == accs(ref_val), "egomcq": agree,
+            "evals_a_rank": [len(r["loop"]["sims"]) for r in ranks], "best": [r["loop"]["best"] for r in ranks],
+            "launches": [r["loop"]["launches"] for r in ranks], "launches_expected_each_rank": want,
+            "seconds": [r["loop"]["seconds"] for r in ranks],
+            "peak_memory_gb": [r["loop"]["peak_memory_gb"] for r in ranks]}
+    say("train-loop-tp", **loop)
+    if not (sorted(rel) == list(range(1, LOOP_REF_STEPS + 1)) and max(rel.values()) <= 1e-4
+            and all(a["ok"] for a in agree) and loop["evals_a_rank"] == [len(ref_sims)] * TP_RANKS
+            and loop["steps"] == [LOOP_REF_STEPS] * TP_RANKS and all(x == want for x in loop["launches"])
+            and len(set(loop["best"])) == 1):
+        raise AssertionError("the loop with a split backbone disagrees with the one-process loop (train-loop-tp line)")
+    return {k: ref["launches"][k] + sum(r["launches"][k] + r["loop"]["launches"][k] for r in ranks) for k in _counters()}
+
+
 def _time_loop_shape(device, peaks) -> dict:
     """K1, K2 and K3 (both modes) alone at the loop's shape (B=32 clips,
     T=4) in bf16, as ``_time_train_shape`` (K4 and K5 see 32 x 4 x 256 =
@@ -2721,7 +3340,12 @@ def phase_eval(card, device="cuda", backbone="timesformer_large") -> dict:
 
 
 def main():
+    if sys.argv[1:2] == ["--tp-worker"]:  # a rank of phase_train_tp, started by it
+        rank, port, out, meta, data, device, backbone_name = sys.argv[2:9]
+        return tp_worker(int(rank), int(port), out, meta, data, device, backbone_name)
     name, card = phase_device()
+    import gc
+
     import torch
 
     from helping_hand_for_egocentric_videos_torch.train import EvalModel
@@ -2729,6 +3353,9 @@ def main():
     peaks = PEAKS["pcie" if "pcie" in name.lower() else "sxm"]
     phase_build()
     report = phase_kernels("cuda", peaks)
+    local = _time_local_heads("cuda", peaks)  # the model axis's K1/K2 shapes
+    for row in local:
+        report[row["mode"]].setdefault("local_heads", []).append(row)
     report.update(phase_int8_kernels("cuda", peaks))
     report["headgrid"] = phase_headgrid("cuda", peaks)
     phase_int_mm("cuda", peaks)
@@ -2761,15 +3388,20 @@ def main():
     launches_loop8, ref_losses = phase_train_loop_int8(card, fixture, loop_root)
     launches_dist = phase_train_loop_dist(card, fixture, loop_root, ref_losses)
     phase_profile(card, loop_root / "runs" / "loop" / "profile")
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches_tp = phase_train_tp(card, loop_root, checked={(r["mode"], r["H"], r["B"], r["T"]) for r in local})
     launches_boot, vit_path = phase_clip_bootstrap(card, fixture, loop_root)
     phase_clip_zoo(card, vit_path, loop_root)
     shutil.rmtree(loop_root, ignore_errors=True)
     phase_doctor(card)
     # launches on the main path: the serving runs at 16 and at 128 frames, bf16
-    # and int8, the eval CLIs and visualize, the train steps, the training loops
-    # and the loop on the CLIP bootstrap
+    # and int8, the eval CLIs and visualize, the train steps, the training loops,
+    # both ranks of the split backbone's steps and loop, and the loop on the CLIP
+    # bootstrap
     total = {k: launches[k] + launches8[k] + launches_long[k] + launches_eval[k] + launches_train[k]
-             + launches_loop[k] + launches_loop8[k] + launches_dist[k] + launches_boot[k] for k in _counters()}
+             + launches_loop[k] + launches_loop8[k] + launches_dist[k] + launches_tp[k] + launches_boot[k]
+             for k in _counters()}
     counts = {
         "space": total["divided_attention_space"], "time": total["divided_attention_time"],
         "space_int8": total["divided_attention_space_int8"], "time_int8": total["divided_attention_time_int8"],

@@ -11,6 +11,11 @@ Several GPUs, one rank each (``--batch_size`` is the global batch):
 
     torchrun --nproc_per_node 4 -m helping_hand_for_egocentric_videos_torch.cli.train ...
 
+``--model_parallel M`` splits the frozen backbone over M ranks (a model
+group; the ranks form world / M data groups of the global batch):
+
+    torchrun --nproc_per_node 4 -m helping_hand_for_egocentric_videos_torch.cli.train --model_parallel 2 ...
+
 On the CPU (the kernels' plain versions): ``--device cpu``.
 """
 
@@ -48,7 +53,8 @@ def parse_args(argv=None):
     )
     p.add_argument("--decoder_ckpt", default="")
     p.add_argument("--model_parallel", type=int, default=1,
-                   help="tensor-parallel backbone; only 1 is ported (ROADMAP.md queue A item 6)")
+                   help="ranks a frozen backbone is split over (tensor parallel: each holds its heads and hidden "
+                   "units, parallel/tensor.py); must divide the ranks, and --batch_size the data groups")
     p.add_argument(
         "--augment",
         action="store_true",

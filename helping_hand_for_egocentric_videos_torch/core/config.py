@@ -8,9 +8,10 @@ the tree.
 
 Two fields read differently on the torch backend: ``data.batch_size`` is
 the global batch over every rank (a torch rank is one device, and each
-samples ``batch_size // world``), and ``parallel.num_devices`` /
+samples ``batch_size // data_world``), and ``parallel.num_devices`` /
 ``model_parallel`` are the JAX mesh's knobs (the torch world is
-``torchrun``'s; ``model_parallel > 1`` is not ported).
+``torchrun``'s; ``model_parallel`` = M splits it into world / M data
+groups of M ranks that split one backbone, ``parallel/tensor.py``).
 """
 
 from __future__ import annotations

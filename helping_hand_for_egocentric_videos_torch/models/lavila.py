@@ -91,20 +91,23 @@ class Lavila(nn.Module):
         )
 
 
-def encode_image(params: Lavila, cfg: LavilaConfig, video, *, dtype=torch.bfloat16):
-    """video (B, T, H, W, C) -> (projected CLS (B, E), token map (B, 1+T*N, D))."""
+def encode_image(params: Lavila, cfg: LavilaConfig, video, *, dtype=torch.bfloat16, mp=None):
+    """video (B, T, H, W, C) -> (projected CLS (B, E), token map (B, 1+T*N, D)).
+    ``mp``: a ``parallel.ModelParallel`` whose rank holds the shard
+    ``params`` (``parallel.tensor.shard_lavila``)."""
     if params.image_projection is None:
         raise ValueError("this backbone has no image_projection (a vision-only checkpoint without one)")
-    x_cls, x = spacetime_forward(params.visual, cfg.visual, video, dtype=dtype)
+    x_cls, x = spacetime_forward(params.visual, cfg.visual, video, dtype=dtype, mp=mp)
     return x_cls @ params.image_projection, x
 
 
 def lavila_forward(params: Lavila, cfg: LavilaConfig, video, tokens, *, norm_embed: bool = True,
-                   dtype=torch.bfloat16):
+                   dtype=torch.bfloat16, mp=None):
     """Image/text embeds (L2-normalised if ``norm_embed``), both feature
-    maps before projection, and exp(logit_scale)."""
-    image_embed, image_fmap = encode_image(params, cfg, video, dtype=dtype)
-    text_embed, text_fmap = encode_text(params.text, cfg.text, tokens, dtype=torch.float32)
+    maps before projection, and exp(logit_scale); ``mp`` as
+    ``encode_image``."""
+    image_embed, image_fmap = encode_image(params, cfg, video, dtype=dtype, mp=mp)
+    text_embed, text_fmap = encode_text(params.text, cfg.text, tokens, dtype=torch.float32, mp=mp)
     if norm_embed:
         image_embed = image_embed / image_embed.norm(dim=-1, keepdim=True)
         text_embed = text_embed / text_embed.norm(dim=-1, keepdim=True)

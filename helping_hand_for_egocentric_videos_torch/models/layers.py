@@ -21,6 +21,7 @@ from .quant import QuantLinear, int8_linear, mixed_linear
 __all__ = [
     "linear_init",
     "linear",
+    "row_linear",
     "layer_norm_init",
     "layer_norm",
     "quick_gelu",
@@ -54,6 +55,27 @@ def linear(p, x):
         return int8_linear(p, x) if p.q_on is None else mixed_linear(p, x)
     bias = None if p.bias is None else p.bias.to(x.dtype)
     return F.linear(x, p.weight.to(x.dtype), bias)
+
+
+def row_linear(p: nn.Linear, x, mp=None):
+    """``linear`` of a weight that holds this rank's input features (its
+    ``x`` is this rank's part of the input): the partial products in f32,
+    summed over the model group of ``mp`` (a ``parallel.ModelParallel``),
+    then the bias, rounded once to ``x``'s type, as the one-card matmul
+    rounds. ``mp`` None is ``linear``. Outside autograd only."""
+    if mp is None:
+        return linear(p, x)
+    w = p.weight.to(x.dtype)
+    if x.dtype == torch.float32:
+        part = F.linear(x, w)
+    elif x.is_cuda:  # the product of bf16 operands kept in f32
+        part = torch.mm(x.reshape(-1, x.shape[-1]), w.t(), out_dtype=torch.float32).reshape(*x.shape[:-1], -1)
+    else:
+        part = F.linear(x.float(), w.float())
+    part = mp.all_reduce(part)
+    if p.bias is not None:
+        part = part + p.bias.float()
+    return part.to(x.dtype)
 
 
 def layer_norm_init(dim: int, device=None) -> nn.LayerNorm:
@@ -96,7 +118,7 @@ def _merge_heads(x):
 
 
 def multi_head_attention(p: MultiheadAttention, q_in, k_in, v_in, num_heads: int, mask=None,
-                         return_probs: bool = False, generator=None, dropout_rate: float = 0.0):
+                         return_probs: bool = False, generator=None, dropout_rate: float = 0.0, mp=None):
     """torch.nn.MultiheadAttention semantics, batch first.
 
     q_in/k_in/v_in: (B, Nq/Nk, D). ``mask``: additive float mask
@@ -105,6 +127,9 @@ def multi_head_attention(p: MultiheadAttention, q_in, k_in, v_in, num_heads: int
     ``generator``/``dropout_rate``: nn.MultiheadAttention's dropout of the
     softmax weights (inverted-scaled, not renormalised), drawn only when a
     generator is given; ``return_probs`` reports the weights before it.
+    ``mp``: a ``parallel.ModelParallel`` whose rank holds ``num_heads``
+    heads of wq/wk/wv (column-split) and their input columns of ``wo``
+    (row-split, ``row_linear``).
     """
     q = _split_heads(linear(p.wq, q_in), num_heads)
     k = _split_heads(linear(p.wk, k_in), num_heads)
@@ -114,7 +139,7 @@ def multi_head_attention(p: MultiheadAttention, q_in, k_in, v_in, num_heads: int
     if mask is not None:
         logits = logits + mask
     probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
-    out = linear(p.wo, _merge_heads(dropout(generator, probs, dropout_rate) @ v))
+    out = row_linear(p.wo, _merge_heads(dropout(generator, probs, dropout_rate) @ v), mp)
     if return_probs:
         return out, probs.mean(dim=1)
     return out

@@ -38,6 +38,19 @@ TPU kernel takes the shape (``_kernel_friendly``). At T = 128 its time
 attention leaves the kernel, so time attention there takes the unfused
 route (and K6), while space attention and the MLP stay fused. The CLS row
 always goes through ``linear``.
+
+Under the mesh's model axis (``spacetime_forward(..., mp=...)``,
+``parallel/tensor.py``) each rank holds its heads of q, k and v in both
+``qkv`` matrices and its input columns of both ``proj`` matrices, and its
+hidden units of ``mlp_fc1`` / ``mlp_fc2``. The attention kernels run on the
+rank's local heads (``cfg.heads // M``), ``merge_cls_partials`` too; the
+routes are decided on the global head count (``block_routes``), since
+``needs_head_grid`` and ``_kernel_friendly`` read it; each row-split
+product is summed over the model group in f32 and rounded once
+(``layers.row_linear``): three all-reduces of (B, 1 + T*N, D) f32 a block,
+the CLS row carried with the patch rows. The residual stream and the
+LayerNorms are whole on every rank. An int8 tower does not split
+(``parallel.tensor.shard_lavila``).
 """
 
 from __future__ import annotations
@@ -49,10 +62,10 @@ from torch import nn
 
 from ..ops.act_quant import layer_norm_int8, quick_gelu_int8
 from ..ops.divided_attention import divided_patch_attention, merge_cls_partials, needs_head_grid
-from .layers import layer_norm, layer_norm_init, linear, linear_init, quick_gelu
+from .layers import layer_norm, layer_norm_init, linear, linear_init, quick_gelu, row_linear
 from .quant import QuantLinear, int8_linear_prequant
 
-__all__ = ["SpaceTimeConfig", "SpaceTimeViT", "spacetime_forward", "patchify"]
+__all__ = ["SpaceTimeConfig", "SpaceTimeViT", "block_routes", "spacetime_forward", "patchify"]
 
 _BACKENDS = ("kernel", "reference")
 
@@ -131,13 +144,16 @@ def _attend(q, k, v):
     return probs @ v
 
 
-def _var_attention(p: VarAttention, x, t: int, n: int, heads: int, mode: str):
-    """Plain attention over the full (B, 1 + T*N, D) tokens (the oracle)."""
-    b, seq, d = x.shape
+def _var_attention(p: VarAttention, x, t: int, n: int, heads: int, mode: str, mp=None):
+    """Plain attention over the full (B, 1 + T*N, D) tokens (the oracle);
+    with ``mp``, over this rank's ``heads``."""
+    b, seq, _ = x.shape
+    qkv = linear(p.qkv, x)
+    d = qkv.shape[-1] // 3  # the heads' width: D, or this rank's part of it
     dh = d // heads
     q, k, v = (
         z.reshape(b, seq, heads, dh).transpose(1, 2)  # (B, H, S, dh)
-        for z in linear(p.qkv, x).chunk(3, dim=-1)
+        for z in qkv.chunk(3, dim=-1)
     )
     q = q * (dh**-0.5)
     cls_q, q_ = q[:, :, :1], q[:, :, 1:]
@@ -168,7 +184,7 @@ def _var_attention(p: VarAttention, x, t: int, n: int, heads: int, mode: str):
     out = unshape(_attend(reshape(q_), kg, vg))
     out = torch.cat([cls_out, out], dim=2)  # (B, H, S, dh)
     out = out.transpose(1, 2).reshape(b, seq, d)
-    return linear(p.proj, out)
+    return row_linear(p.proj, out, mp)
 
 
 def _pure_int8(lin) -> bool:
@@ -189,8 +205,24 @@ def _kernel_friendly(n: int, d: int, heads: int, t: int, mode: str = "space") ->
     return (d // heads) % 64 == 0 and n % 8 == 0 and n >= 32 and heads <= 16 and t <= 128
 
 
+def block_routes(cfg: SpaceTimeConfig, t: int, n: int, mp=None) -> dict:
+    """How a block's attention runs at T frames of N patches, decided on
+    the tower's global width and head count whatever ``mp`` (a
+    ``parallel.ModelParallel``): ``kernel_friendly`` per mode (the JAX
+    package's route: its int8 fusion, ``quant_out``), ``head_grid`` (time
+    attention on K6), and the ``heads`` each rank launches on. On local
+    heads ``needs_head_grid`` would flip at T = 128, N = 256: 8 heads ask
+    84 MB of the TPU's 105 MB budget, where 16 ask 151 MB."""
+    kernel = cfg.attention_backend == "kernel"
+    return {
+        "kernel_friendly": {m: kernel and _kernel_friendly(n, cfg.width, cfg.heads, t, m) for m in ("time", "space")},
+        "head_grid": needs_head_grid(t, n, cfg.heads),
+        "heads": cfg.heads if mp is None else cfg.heads // mp.size,
+    }
+
+
 def _var_attention_split(p: VarAttention, x_cls, x_p, t: int, n: int, heads: int, mode: str, backend: str,
-                         kernel_route: bool = True):
+                         kernel_route: bool = True, head_grid: bool = False, mp=None):
     """Divided attention on the split (cls, patches) representation.
 
     ``x_p`` is the (B, T*N, D) patch stream, or on the fused int8 route its
@@ -200,27 +232,33 @@ def _var_attention_split(p: VarAttention, x_cls, x_p, t: int, n: int, heads: int
     (B, T, N, 3D) input. ``kernel_route`` False is the JAX package's XLA
     route for shapes its TPU kernel does not take: ``linear`` for qkv and
     proj, the attention output never quantized by the kernel.
+    ``head_grid``: time attention on K6. ``mp``: ``heads`` are this rank's
+    and ``proj`` is row-split; the CLS and patch rows of the projection are
+    summed over the model group in one all-reduce.
     """
     if backend == "reference":
-        out = _var_attention(p, torch.cat([x_cls, x_p], dim=1), t, n, heads, mode)
+        out = _var_attention(p, torch.cat([x_cls, x_p], dim=1), t, n, heads, mode, mp)
         return out[:, :1], out[:, 1:]
     if backend != "kernel":
         raise ValueError(f"attention_backend must be one of {_BACKENDS}, got {backend!r}")
     if isinstance(x_p, tuple):  # codes and scales from layer_norm_int8
         x_q, s_x = x_p
-        b, _, d = x_q.shape
         qkv_p = int8_linear_prequant(p.qkv, x_q, s_x, out_dtype=x_cls.dtype)
     else:
-        b, _, d = x_p.shape
         qkv_p = linear(p.qkv, x_p)
+    b, d = qkv_p.shape[0], qkv_p.shape[-1] // 3  # d: the heads' width, D or this rank's part
     qkv_p = qkv_p.reshape(b, t, n, 3 * d)
     cls_q, cls_k, cls_v = (z.contiguous() for z in linear(p.qkv, x_cls)[:, 0].split(d, dim=-1))
     # a pure int8 proj takes the attention output as codes (K3)
     quant_out = kernel_route and _pure_int8(p.proj)
     out_patch, (m, s, co) = divided_patch_attention(
-        qkv_p, cls_k, cls_v, cls_q, mode=mode, heads=heads, quant_out=quant_out
+        qkv_p, cls_k, cls_v, cls_q, mode=mode, heads=heads, quant_out=quant_out,
+        head_grid=head_grid if mode == "time" else None,
     )
     cls_out = merge_cls_partials(m, s, co, cls_q, cls_k, cls_v, heads).to(x_cls.dtype)[:, None, :]
+    if mp is not None:
+        out = row_linear(p.proj, torch.cat([cls_out, out_patch.reshape(b, t * n, d)], dim=1), mp)
+        return out[:, :1], out[:, 1:]
     if quant_out:
         out_q, s_o = out_patch
         patch_out = int8_linear_prequant(
@@ -231,14 +269,16 @@ def _var_attention_split(p: VarAttention, x_cls, x_p, t: int, n: int, heads: int
     return linear(p.proj, cls_out), patch_out
 
 
-def _block(p: SpaceTimeBlock, x, cfg: SpaceTimeConfig, t: int, n: int):
-    """One block on the split (x_cls, x_p) representation."""
+def _block(p: SpaceTimeBlock, x, cfg: SpaceTimeConfig, t: int, n: int, mp=None):
+    """One block on the split (x_cls, x_p) representation; ``mp``: this
+    rank's shard of the block (module docstring)."""
     eps = cfg.ln_eps
     be = cfg.attention_backend
     x_cls, x_p = x
     d = x_p.shape[-1]
     # the JAX package's route per mode (module docstring; its _block)
-    ok = {m: be == "kernel" and _kernel_friendly(n, d, cfg.heads, t, m) for m in ("time", "space")}
+    routes = block_routes(cfg, t, n, mp)
+    ok = routes["kernel_friendly"]
     lanes_ok = d % 128 == 0
     int8_qkv = _pure_int8(p.timeattn.qkv) and _pure_int8(p.attn.qkv)
     q_attn = {m: ok[m] and lanes_ok and int8_qkv for m in ("time", "space")}
@@ -247,22 +287,27 @@ def _block(p: SpaceTimeBlock, x, cfg: SpaceTimeConfig, t: int, n: int):
     def norm_patch(norm, z, mode):
         return layer_norm_int8(norm, z, eps) if q_attn[mode] else layer_norm(norm, z, eps)
 
+    heads, grid = routes["heads"], routes["head_grid"]
     tc, tp = _var_attention_split(
         p.timeattn, layer_norm(p.norm3, x_cls, eps), norm_patch(p.norm3, x_p, "time"),
-        t, n, cfg.heads, "time", be, ok["time"],
+        t, n, heads, "time", be, ok["time"], grid, mp,
     )
     tr_cls, tr_p = x_cls + tc, x_p + tp
 
     sc, sp = _var_attention_split(
         p.attn, layer_norm(p.norm1, tr_cls, eps), norm_patch(p.norm1, tr_p, "space"),
-        t, n, cfg.heads, "space", be, ok["space"],
+        t, n, heads, "space", be, ok["space"], mp=mp,
     )
     # 'frozen-in-time' residual: from x, not from the time residual
     sr_cls, sr_p = x_cls + sc, x_p + sp
 
     def mlp(z):
         h = layer_norm(p.norm2, z, eps)
-        return z + linear(p.mlp_fc2, quick_gelu(linear(p.mlp_fc1, h)))
+        return z + row_linear(p.mlp_fc2, quick_gelu(linear(p.mlp_fc1, h)), mp)
+
+    if mp is not None:  # the CLS row with the patch rows: one all-reduce
+        z = mlp(torch.cat([sr_cls, sr_p], dim=1))
+        return z[:, :1], z[:, 1:]
 
     def mlp_patch(z):
         if not q_mlp:
@@ -284,13 +329,16 @@ def patchify(params: SpaceTimeViT, cfg: SpaceTimeConfig, video):
     return linear(params.patch_embed, x.reshape(b, t * gh * gw, p * p * c))
 
 
-def spacetime_forward(params: SpaceTimeViT, cfg: SpaceTimeConfig, video, *, dtype=torch.bfloat16):
+def spacetime_forward(params: SpaceTimeViT, cfg: SpaceTimeConfig, video, *, dtype=torch.bfloat16, mp=None):
     """Forward pass.
 
     Args:
         video: (B, T, H, W, C) float, already normalised; T may be any
             value up to the temporal-embedding length.
         dtype: the working type of the residual stream and the weights.
+        mp: a ``parallel.ModelParallel`` whose rank holds the shard
+            ``params`` (module docstring); every rank of its group gets
+            the whole outputs.
     Returns:
         (cls (B, D), tokens (B, 1+T*N, D)), both after the final LayerNorm,
         which runs in f32; f32 outputs.
@@ -309,7 +357,7 @@ def spacetime_forward(params: SpaceTimeViT, cfg: SpaceTimeConfig, video, *, dtyp
     x_p = layer_norm(params.ln_pre, x_p, 1e-5)
 
     for blk in params.blocks:
-        x_cls, x_p = _block(blk, (x_cls, x_p), cfg, t, n)
+        x_cls, x_p = _block(blk, (x_cls, x_p), cfg, t, n, mp)
 
     x = torch.cat([x_cls, x_p], dim=1)
     x = layer_norm(params.norm, x.float(), cfg.ln_eps)

@@ -17,20 +17,23 @@ gradient).
 
 ``init_from_env`` reads ``torchrun``'s variables (``RANK``,
 ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``/``MASTER_PORT``) and
-starts ``nccl`` on a CUDA device, ``gloo`` on the CPU. The mesh's
-``model`` axis (tensor-parallel rules for the frozen backbone,
-``lavila_param_sharding``) is not ported: ROADMAP.md queue A item 6.
+starts ``nccl`` on a CUDA device, ``gloo`` on the CPU. Under the mesh's
+``model`` axis (``parallel/tensor.py``) a ``DataParallel`` spans the data
+group, the ranks of one model index, and its rank and world are the data
+rank and the number of data groups; without it the data group is the
+default group.
 """
 
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass
+from typing import Any
 
 import torch
 import torch.distributed as dist
 
-__all__ = ["DataParallel", "init_from_env"]
+__all__ = ["DataParallel", "average_grads", "init_from_env"]
 
 
 def init_from_env(device=None) -> "DataParallel | None":
@@ -57,31 +60,50 @@ def init_from_env(device=None) -> "DataParallel | None":
                         device=torch.device("cuda", local) if kind == "cuda" else torch.device("cpu"))
 
 
+def average_grads(params, world: int, group=None):
+    """Average the ``.grad`` of ``params`` over the ``world`` ranks of
+    ``group`` in place, in one all_reduce of a flat buffer. Every rank must
+    hold gradients for the same parameters."""
+    grads = [p.grad for p in params if p.grad is not None]
+    if not grads:
+        return
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=group)
+    flat /= world
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
+
+
 class _GatherRows(torch.autograd.Function):
     """All-gather along dim 0; the backward sums the incoming gradient over
     ranks and keeps this rank's rows (every rank's loss reads every row)."""
 
     @staticmethod
-    def forward(ctx, x, rank: int, world: int):
+    def forward(ctx, x, rank: int, world: int, group):
         parts = [torch.empty_like(x) for _ in range(world)]
-        dist.all_gather(parts, x.contiguous())
-        ctx.rank, ctx.rows = rank, x.shape[0]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        ctx.rank, ctx.rows, ctx.group = rank, x.shape[0], group
         return torch.cat(parts)
 
     @staticmethod
     def backward(ctx, grad):
         grad = grad.contiguous().clone()
-        dist.all_reduce(grad)
-        return grad[ctx.rank * ctx.rows:(ctx.rank + 1) * ctx.rows], None, None
+        dist.all_reduce(grad, group=ctx.group)
+        return grad[ctx.rank * ctx.rows:(ctx.rank + 1) * ctx.rows], None, None, None
 
 
 @dataclass(frozen=True)
 class DataParallel:
-    """This process's place in the default process group."""
+    """This process's place in its data group: ``rank`` of ``world``
+    ranks that split the global batch; ``group`` the process group (None:
+    the default group)."""
 
     rank: int
     world: int
     device: torch.device
+    group: Any = None
 
     def rows(self, n_global: int) -> slice:
         """This rank's rows of a global batch of ``n_global`` rows."""
@@ -93,31 +115,22 @@ class DataParallel:
     def gather(self, x):
         """The global batch of a per-rank tensor, in rank order, with its
         gradient routed back to the rank that owns each row."""
-        return _GatherRows.apply(x, self.rank, self.world)
+        return _GatherRows.apply(x, self.rank, self.world, self.group)
 
     def gather_const(self, x):
         """The global batch of a per-rank tensor that needs no gradient."""
         parts = [torch.empty_like(x) for _ in range(self.world)]
-        dist.all_gather(parts, x.contiguous())
+        dist.all_gather(parts, x.contiguous(), group=self.group)
         return torch.cat(parts)
 
     def sum(self, x):
         """The sum over ranks of a tensor, outside autograd."""
         x = x.detach().clone()
-        dist.all_reduce(x)
+        dist.all_reduce(x, group=self.group)
         return x
 
     def average_grads(self, params):
         """Average the ``.grad`` of ``params`` over ranks in place, in one
         all_reduce of a flat buffer. Every rank must hold gradients for the
         same parameters."""
-        grads = [p.grad for p in params if p.grad is not None]
-        if not grads:
-            return
-        flat = torch.cat([g.reshape(-1) for g in grads])
-        dist.all_reduce(flat)
-        flat /= self.world
-        offset = 0
-        for g in grads:
-            g.copy_(flat[offset:offset + g.numel()].view_as(g))
-            offset += g.numel()
+        average_grads(params, self.world, self.group)

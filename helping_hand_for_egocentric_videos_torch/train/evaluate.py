@@ -63,6 +63,12 @@ class EvalModel:
     embed to k*B rows, crop-major (row ``c * B + i`` is crop c of clip i),
     and only ``run_egtea``'s max-pool over rows takes them
     (run/test_egtea.py:245-246).
+
+    ``mp``: a ``parallel.ModelParallel`` whose rank holds ``backbone`` as
+    its shard (``parallel.tensor.shard_lavila``). Every rank of its group
+    must then embed the same items together (the forwards' all-reduces
+    pair them up), and each gets the whole embeddings. The int8 tower does
+    not split: ``int8`` with ``mp`` raises.
     """
 
     def __init__(
@@ -79,9 +85,14 @@ class EvalModel:
         device=None,
         int8: bool = False,
         int8_fallback: float | None = None,
+        mp=None,
     ):
         if preprocess not in _PREPROCESS:
             raise ValueError(f"preprocess must be one of {_PREPROCESS}, got {preprocess!r}")
+        if int8 and mp is not None:
+            raise ValueError("int8=True with a model-parallel backbone: the int8 tower does not split "
+                             "(parallel.tensor.shard_lavila says why)")
+        self.mp = mp
         self.device = resolve_device(device)
         self.lavila_cfg = lavila_cfg
         self.dec_cfg = dec_cfg
@@ -106,7 +117,7 @@ class EvalModel:
         """(B, 77) token ids -> (B, E) f32 text embeddings."""
         with torch.inference_mode():
             tok = torch.as_tensor(np.asarray(tokens), device=self.device).long()
-            _, fmap = encode_text(self.backbone.text, self.lavila_cfg.text, tok)
+            _, fmap = encode_text(self.backbone.text, self.lavila_cfg.text, tok, mp=self.mp)
             eot = tok.argmax(dim=-1)
             emb = txt_proj(self.decoder, fmap[torch.arange(tok.shape[0], device=self.device), eot])
             return emb.cpu().numpy()
@@ -124,7 +135,7 @@ class EvalModel:
                 video = video.reshape((-1,) + video.shape[2:])
             else:
                 video = shortside_centercrop_normalize(v, res=self.input_res)
-            _, fmap = spacetime_forward(self.visual, self.lavila_cfg.visual, video, dtype=self.dtype)
+            _, fmap = spacetime_forward(self.visual, self.lavila_cfg.visual, video, dtype=self.dtype, mp=self.mp)
             b, t = video.shape[:2]
             grid = fmap[:, 1:, :].reshape(b, t, self.lavila_cfg.visual.patches_per_frame, -1)
             out = decoder_forward(self.decoder, self.dec_cfg, grid)

@@ -6,12 +6,21 @@ decoder, stream EgoClip batches, run the train step, evaluate EgoMCQ
 every ``eval_freq`` steps, keep runtime checkpoints (the last k) and the
 best model by EgoMCQ Inter-video accuracy.
 
-One process runs on one device. Under ``torchrun`` each rank runs this
-loop on its share of the global batch (``data.batch_size // world``
-items, its own dataset seed ``optim.seed + rank``), and the step averages
-over ranks (``parallel/dist.py``). Rank 0 writes the logs and the
-checkpoints and runs the online eval; every rank reads a checkpoint to
-resume.
+One process runs on one device. Under ``torchrun`` each data group's
+rank runs this loop on its share of the global batch
+(``data.batch_size // data_world`` items, its own dataset seed
+``optim.seed + data_rank``), and the step averages over the data group
+(``parallel/dist.py``). With ``parallel.model_parallel`` = M > 1 the ranks
+form (world / M) data groups x M model ranks, in the JAX mesh's order
+(``parallel/tensor.py``): the M ranks of a model group hold one frozen
+backbone split between them (its heads and hidden units), feed it the
+same rows and draw the same dropout, so their replicated decoders stay
+one. (JAX's loop puts the backbone replicated whatever the mesh; the port
+splits it, since M replicas would repeat the same work M times. Both
+compute the same function.) Rank 0 writes the logs and the checkpoints;
+the online eval runs on every rank of data group 0's model group (its
+forwards need all the backbone's shards) and rank 0 logs it; every rank
+reads a checkpoint to resume.
 
 Metric scalars stay device tensors between flushes (``log_flush_iter``):
 nothing in the steps between two flushes waits for the device. At a
@@ -54,7 +63,7 @@ from ..models.weights import (
     convert_openai_clip_checkpoint,
     load_torch_state_dict,
 )
-from ..parallel import init_from_env
+from ..parallel import init_from_env, make_groups, shard_lavila
 from ..utils.logging import AverageMeter, MetricLogger, ProgressMeter
 from .evaluate import EvalModel, run_egomcq
 from .step import TrainConfig, TrainState, make_train_step
@@ -162,23 +171,25 @@ def pretrain(cfg: ExperimentConfig, *, max_steps: int | None = None, eval_limit:
     neither flushes, evaluates, saves nor traces (and is not the
     process's first): those steps must not wait for the device.
     """
-    if cfg.parallel.model_parallel > 1:
-        raise NotImplementedError(
-            f"parallel.model_parallel={cfg.parallel.model_parallel}: the tensor-parallel backbone "
-            "(lavila_param_sharding) is not ported; it is ROADMAP.md queue A item 6"
-        )
     dp = init_from_env(torch.device("cuda" if device is None else device).type)
     device = dp.device if dp is not None else resolve_device(device)
     rank, world = (dp.rank, dp.world) if dp is not None else (0, 1)
     if cfg.parallel.num_devices and cfg.parallel.num_devices != world:
         raise ValueError(f"parallel.num_devices={cfg.parallel.num_devices}, but the run has {world} ranks "
                          "(torchrun --nproc_per_node sets them; 0 takes the run's)")
-    if cfg.data.batch_size % world:
+    model_parallel, mp = cfg.parallel.model_parallel, None
+    if dp is None and model_parallel != 1:
+        raise ValueError(f"parallel.model_parallel={model_parallel} does not divide the run's {world} ranks")
+    if model_parallel != 1:  # the data group and the model group of this rank
+        dp, mp = make_groups(world, model_parallel, device)
+    data_rank, data_world = (dp.rank, dp.world) if dp is not None else (0, 1)
+    if cfg.data.batch_size % data_world:
         raise ValueError(f"data.batch_size={cfg.data.batch_size} (the global batch) does not split over "
-                         f"{world} ranks")
+                         f"{data_world} data groups")
     if sync_debug is not None and device.type != "cuda":
         raise ValueError("sync_debug checks CUDA host syncs; it needs a CUDA device")
     lead = rank == 0
+    evaluates = data_rank == 0  # data group 0's model group: every shard of one backbone
     exp_dir = os.path.join(cfg.output_dir, cfg.name)
     os.makedirs(exp_dir, exist_ok=True)
     logger = val_logger = None
@@ -191,6 +202,8 @@ def pretrain(cfg: ExperimentConfig, *, max_steps: int | None = None, eval_limit:
     if models is None:
         models = build_models(cfg, cfg.optim.seed)
     lavila_cfg, backbone, dec_cfg, decoder = models
+    if mp is not None:  # this rank's shard of the frozen backbone
+        backbone = shard_lavila(backbone, lavila_cfg, mp)
     backbone = backbone.to(device).requires_grad_(False)
     tcfg = build_train_config(cfg)
 
@@ -198,7 +211,7 @@ def pretrain(cfg: ExperimentConfig, *, max_steps: int | None = None, eval_limit:
     train_ds = EgoClipDataset(EgoClipConfig(
         meta_dir=cfg.data.meta_dir, data_dir=cfg.data.data_dir, split="train", num_frames=cfg.data.num_frames,
         input_res=cfg.data.input_res, frame_sample=cfg.data.frame_sample, loading=cfg.data.loading,
-        seed=cfg.optim.seed + rank,
+        seed=cfg.optim.seed + data_rank,
     ))
     val_ds = EgoClipDataset(EgoClipConfig(
         meta_dir=cfg.data.meta_dir, data_dir=cfg.data.data_dir, split="val", num_frames=cfg.data.num_frames,
@@ -207,12 +220,13 @@ def pretrain(cfg: ExperimentConfig, *, max_steps: int | None = None, eval_limit:
     _, noun_embeds_raw = load_noun_dict(cfg.data.meta_dir)
     noun_dict = torch.as_tensor(noun_embeds_raw, device=device)
 
-    local_batch = cfg.data.batch_size // world
-    sampler = ShardedSampler(len(train_ds), local_batch, shuffle=True, host_id=rank, num_hosts=world,
+    # the ranks of a model group read the same rows: the data rank picks them
+    local_batch = cfg.data.batch_size // data_world
+    sampler = ShardedSampler(len(train_ds), local_batch, shuffle=True, host_id=data_rank, num_hosts=data_world,
                              seed=cfg.optim.seed)
     # every rank takes as many steps an epoch as the rank with the fewest
     # batches (the last: its share of the permutation is the shortest)
-    spe = len(ShardedSampler(len(train_ds), local_batch, host_id=world - 1, num_hosts=world))
+    spe = len(ShardedSampler(len(train_ds), local_batch, host_id=data_world - 1, num_hosts=data_world))
     loader = PrefetchLoader(train_ds, sampler, num_threads=cfg.data.num_workers,
                             transform=lambda b: prepare_train_batch(b, tokenizer))
 
@@ -236,14 +250,15 @@ def pretrain(cfg: ExperimentConfig, *, max_steps: int | None = None, eval_limit:
         best_acc = float(tree["best_acc"])
         print(f"resumed from step {step0} (best_acc={best_acc:.3f})", flush=True)
 
-    step_fn = make_train_step(dec_cfg, lavila_cfg, tcfg, dist=dp)
+    step_fn = make_train_step(dec_cfg, lavila_cfg, tcfg, dist=dp, mp=mp)
     step = first = state.step
     batch_time = AverageMeter("Time", ":.2f")
     data_time = AverageMeter("Data", ":.2f")
     losses = AverageMeter("Loss", ":.4f")
     progress = ProgressMeter(spe, [batch_time, data_time, losses], prefix="Train")
-    # dropout draws differ by rank; the augmentation draws for the global
-    # batch, the same on every rank (train/step.py::augment_batch)
+    # dropout draws differ by data rank (a model group's ranks draw the
+    # same); the augmentation draws for the global batch, the same on every
+    # rank (train/step.py::augment_batch)
     drop_gen = torch.Generator(device=device)
     aug_gen = torch.Generator(device=device)
 
@@ -268,9 +283,9 @@ def pretrain(cfg: ExperimentConfig, *, max_steps: int | None = None, eval_limit:
     pending_save = None  # in-flight save-behind write (optim.async_save)
     pending_metrics = []  # sampled device scalars awaiting the flush cadence
     eval_model = None
-    if lead:  # one EvalModel for the run; each eval swaps in the current decoder
+    if evaluates:  # one EvalModel for the run; each eval swaps in the current decoder
         eval_model = EvalModel(backbone, lavila_cfg, state.decoder, dec_cfg, tokenizer,
-                               input_res=cfg.data.input_res, device=device)
+                               input_res=cfg.data.input_res, device=device, mp=mp)
     # epoch-granular resume, like the reference's checkpoint['epoch']
     # (run/train.py:523-546): restart at the epoch of the restored step (a
     # partial epoch replays from its start; the step counter and the
@@ -296,7 +311,7 @@ def pretrain(cfg: ExperimentConfig, *, max_steps: int | None = None, eval_limit:
                     waited = time.time() - end
                     data_time.update(waited)
                     window["data"] += waited
-                    drop_gen.manual_seed(_seed(cfg.optim.seed, s, rank))
+                    drop_gen.manual_seed(_seed(cfg.optim.seed, s, data_rank))
                     aug_gen.manual_seed(_seed(cfg.optim.seed, s))
                     if s == cfg.optim.profile_step:
                         # one-step device trace (utils/profiling.py)
@@ -330,14 +345,16 @@ def pretrain(cfg: ExperimentConfig, *, max_steps: int | None = None, eval_limit:
                     if not isinstance(saved, str):
                         pending_save = saved
 
-                if lead and (step % cfg.optim.eval_freq == 0 or (max_steps and step >= max_steps)):
+                if evaluates and (step % cfg.optim.eval_freq == 0 or (max_steps and step >= max_steps)):
                     eval_model.decoder = state.decoder
                     res = run_egomcq(eval_model, val_ds, limit=eval_limit or 1000)
-                    val_logger.log(step, dict(res), prefix="egomcq/")
                     inter = res.get("Inter-video", 0.0)
                     if inter > best_acc:
                         best_acc = inter
-                        save_checkpoint(os.path.join(exp_dir, "best"), step, _tree(state, best_acc), keep=1)
+                        if lead:
+                            save_checkpoint(os.path.join(exp_dir, "best"), step, _tree(state, best_acc), keep=1)
+                    if lead:
+                        val_logger.log(step, dict(res), prefix="egomcq/")
                 end = time.time()
                 window["paused"] += end - paused
                 if max_steps and step >= max_steps:

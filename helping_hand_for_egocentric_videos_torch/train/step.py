@@ -22,6 +22,14 @@ box and word losses normalised by counts summed over ranks, the
 gradients averaged. Each term is scaled so that the averaged gradient is
 the one-process gradient of the global batch, and the metrics are the
 global batch's.
+
+With a ``parallel.ModelParallel`` (``mp``) the frozen backbone is this
+rank's shard (``parallel.tensor.shard_lavila``): its forward sums the
+row-split products over the model group, and every rank of the group gets
+the whole features. The ranks of a model group feed the same rows and
+draw the same dropout, so the replicated decoder takes the same step on
+each; its gradients are also averaged over the model group, which keeps
+the copies the same bits.
 """
 
 from __future__ import annotations
@@ -151,15 +159,16 @@ class TrainState(NamedTuple):
         return cls(decoder, *make_optimizer(cfg, decoder), 0)
 
 
-def backbone_features(backbone, lavila_cfg, video, tokens, *, dtype=torch.bfloat16):
+def backbone_features(backbone, lavila_cfg, video, tokens, *, dtype=torch.bfloat16, mp=None):
     """The frozen backbone's forward under ``torch.no_grad``: the decoder's
     inputs, with no gradient.
 
     video: (Bv, T, H, W, C) normalised; tokens: (Bt, 77).
     Returns (video_grid (Bv, T, N, C), text_fmap (Bt, 77, Wt)), f32.
+    ``mp``: ``backbone`` is this rank's shard (``lavila_forward``).
     """
     with torch.no_grad():
-        out = lavila_forward(backbone, lavila_cfg, video, tokens, dtype=dtype)
+        out = lavila_forward(backbone, lavila_cfg, video, tokens, dtype=dtype, mp=mp)
     bv, t = video.shape[:2]
     grid = out["image_feature_map"][:, 1:, :].reshape(bv, t, lavila_cfg.visual.patches_per_frame, -1)
     return grid, out["text_feature_map"]
@@ -270,7 +279,7 @@ def augment_batch(cfg: TrainConfig, video, boxes, generator, dist=None):
     return video, transform_boxes(boxes, params, res=cfg.input_res, coords_res=cfg.input_res)
 
 
-def make_train_step(dec_cfg: DecoderConfig, lavila_cfg, cfg: TrainConfig, *, dist=None):
+def make_train_step(dec_cfg: DecoderConfig, lavila_cfg, cfg: TrainConfig, *, dist=None, mp=None):
     """Build the train step.
 
     ``step(state, backbone, batch, noun_dict_embeds, generator=None, *,
@@ -290,7 +299,9 @@ def make_train_step(dec_cfg: DecoderConfig, lavila_cfg, cfg: TrainConfig, *, dis
 
     ``dist``: a ``parallel.DataParallel``; ``batch`` is then this rank's
     rows of the global batch, and the update is the one-process update of
-    the global batch (``pretrain_loss_and_metrics``).
+    the global batch (``pretrain_loss_and_metrics``). ``mp``: a
+    ``parallel.ModelParallel``; ``backbone`` is then this rank's shard, and
+    ``dist`` spans the data group (module docstring).
     """
 
     def step(state: TrainState, backbone, batch, noun_dict_embeds, generator=None, *, aug_generator=None):
@@ -306,7 +317,7 @@ def make_train_step(dec_cfg: DecoderConfig, lavila_cfg, cfg: TrainConfig, *, dis
         elif video.dtype == torch.uint8:  # device-side preprocess
             video = resize_normalize(video, cfg.input_res)
         video_grid, text_fmap = backbone_features(backbone, lavila_cfg, video, b["tokens"],
-                                                  dtype=cfg.backbone_dtype)
+                                                  dtype=cfg.backbone_dtype, mp=mp)
 
         optimizer.zero_grad(set_to_none=True)
         loss, metrics = pretrain_loss_and_metrics(
@@ -317,6 +328,8 @@ def make_train_step(dec_cfg: DecoderConfig, lavila_cfg, cfg: TrainConfig, *, dis
         loss.backward()
         if dist is not None:
             dist.average_grads(decoder.parameters())
+        if mp is not None:
+            mp.average_grads(decoder.parameters())
         grads = [p.grad for p in decoder.parameters() if p.grad is not None]
         metrics["grad_norm"] = _global_norm(grads)
         if cfg.clip_grad > 0:  # optax's clip_by_global_norm over the trained parameters

@@ -14,20 +14,25 @@ Also: resume continues the step counter from the latest checkpoint;
 checkpoint round trip and the save-behind write; ``apply_overrides`` and
 the JSON round trip against JAX's config; the CLI's flags against JAX's
 and ``cli.train.main --device cpu`` end to end on the tiny backbone; the
-int8 backbone through the loop; the profile trace; the refusals
-(``--model_parallel 2``, a ``parallel.num_devices`` that is not the
-world's). A ``cuda`` case runs the loop on the card with the host-sync
-check on.
+int8 backbone through the loop; the profile trace; the refusals (a
+``model_parallel`` that does not divide the world, a
+``parallel.num_devices`` that is not the world's); and the loop with
+``model_parallel=2`` on two ``gloo`` ranks, its backbone split between
+them, against the one-process loop (the logged losses within rtol 1e-5,
+the same EgoMCQ accuracies). A ``cuda`` case runs the loop on the card
+with the host-sync check on.
 """
 
 import dataclasses
 import json
 import os
+import socket
 import types
 
 import numpy as np
 import pytest
 import torch
+import torch.multiprocessing as mp
 
 from helping_hand_for_egocentric_videos_torch.core.checkpoint import (
     PendingSave,
@@ -64,10 +69,11 @@ def jx():
     return types.SimpleNamespace(jax=jax, tiny_models=tiny_models, cfg=jcfg, pre=jpre)
 
 
-def _models(jx):
-    """JAX's tiny models with dropout 0.0, and the same bridged into the port."""
+def _models(jx, dropout=0.0):
+    """JAX's tiny models with the decoder's ``dropout``, and the same bridged
+    into the port."""
     jl, jb, jd, jdec = jx.tiny_models()
-    jd = dataclasses.replace(jd, dropout=0.0)
+    jd = dataclasses.replace(jd, dropout=dropout)
     lcfg = LavilaConfig(visual=_fields(SpaceTimeConfig, jl.visual, attention_backend="kernel"),
                         text=_fields(TextConfig, jl.text), embed_dim=jl.embed_dim)
     dcfg = DecoderConfig(**dataclasses.asdict(jd))
@@ -254,8 +260,8 @@ def test_profile_step_writes_a_trace(jx, egoclip_fixture, tmp_path):
 def test_refusals(jx, egoclip_fixture, tmp_path):
     meta, data = egoclip_fixture
     cfg = _configure(ExperimentConfig(), meta, data, str(tmp_path), "r")
-    cfg.parallel.model_parallel = 2
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 6"):
+    cfg.parallel.model_parallel, cfg.parallel.num_devices = 2, 0
+    with pytest.raises(ValueError, match="model_parallel=2 does not divide the run's 1 ranks"):
         tpre.pretrain(cfg, max_steps=1, models=_models(jx)[1], device="cpu")
     cfg.parallel.model_parallel, cfg.parallel.num_devices = 1, 2
     with pytest.raises(ValueError, match="num_devices"):
@@ -263,6 +269,54 @@ def test_refusals(jx, egoclip_fixture, tmp_path):
     cfg.parallel.num_devices = 0
     with pytest.raises(ValueError, match="CUDA"):
         tpre.pretrain(cfg, max_steps=1, models=_models(jx)[1], device="cpu", sync_debug="error")
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _split_loop_rank(rank: int, port: int, path: str):
+    """One of two ranks of the loop with ``model_parallel=2``."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    torch.set_num_threads(1)
+    cfg, models = torch.load(path, weights_only=False)
+    state, best = tpre.pretrain(cfg, max_steps=3, eval_limit=2, models=models, device="cpu")
+    torch.save({"step": state.step, "best": best}, f"{path}.rank{rank}")
+    torch.distributed.destroy_process_group()
+
+
+def test_loop_with_a_split_backbone_logs_the_one_process_loop(jx, egoclip_fixture, tmp_path):
+    """``parallel.model_parallel=2`` on two ``gloo`` ranks: one model group
+    (each rank holds half of the backbone's heads and hidden units) and one
+    data group, so the same global batch as one process; both ranks run
+    the online EgoMCQ and rank 0 logs it. The decoder's dropout is on: the
+    ranks of a model group must draw what one process draws."""
+    meta, data = egoclip_fixture
+    one = _configure(ExperimentConfig(), meta, data, str(tmp_path / "one"), "run")
+    split = _configure(ExperimentConfig(), meta, data, str(tmp_path / "split"), "run")
+    split.parallel.model_parallel, split.parallel.num_devices = 2, 2
+    path = str(tmp_path / "payload.pt")
+    torch.save((split, _models(jx, dropout=0.1)[1]), path)
+    mp.start_processes(_split_loop_rank, args=(_free_port(), path), nprocs=2, start_method="spawn")
+    ranks = [torch.load(f"{path}.rank{r}", weights_only=False) for r in range(2)]
+    state, best = tpre.pretrain(one, max_steps=3, eval_limit=2, models=_models(jx, dropout=0.1)[1], device="cpu")
+    assert [r["step"] for r in ranks] == [3, 3] and state.step == 3
+    assert ranks[0]["best"] == ranks[1]["best"] == best
+
+    def losses(root):
+        return {r["step"]: r["local/total_loss"] for r in _rows(root / "run" / "train_metrics.jsonl")
+                if "local/total_loss" in r}
+
+    want, got = losses(tmp_path / "one"), losses(tmp_path / "split")
+    assert sorted(got) == sorted(want) == [1, 2, 3]
+    for s in want:
+        assert got[s] == pytest.approx(want[s], rel=1e-5), s
+    jval, tval = (_rows(tmp_path / p / "run" / "val_metrics.jsonl") for p in ("one", "split"))
+    assert [{k: v for k, v in r.items() if k != "time"} for r in tval] == \
+        [{k: v for k, v in r.items() if k != "time"} for r in jval]
 
 
 def _fixture(tmp_path, noun_width):

@@ -35,6 +35,7 @@ from helping_hand_for_egocentric_videos_torch.models import obj_decoder as tod
 from helping_hand_for_egocentric_videos_torch.models.bridge import load_jax_params
 from helping_hand_for_egocentric_videos_torch.train import evaluate as tev
 from helping_hand_for_egocentric_videos_torch.utils import path_vis
+import test_weights
 from test_torch_cli import _ckpts
 
 ATOL = 1e-5
@@ -114,7 +115,10 @@ def f32_both(monkeypatch):
                         functools.partial(visualize.cross_attention_maps, dtype=torch.float32))
 
 
-def test_visualize_cli_matches_jax(tmp_path, f32_both):
+def test_visualize_cli_matches_jax(tmp_path, f32_both, monkeypatch):
+    # the checkpoints draw from test_weights' shared generator: a fresh one
+    # gives the weights this file sees alone, whatever ran before it
+    monkeypatch.setattr(test_weights, "R", np.random.default_rng(3))
     bpath, dpath = _ckpts(tmp_path)
     clip = tmp_path / "clip.mp4.npy"
     np.save(clip, np.random.default_rng(4).integers(0, 256, size=(60, 256, 342, 3), dtype=np.uint8))
