@@ -30,7 +30,8 @@ failed check raises and the script exits non-zero:
    events' time through the wrapper is ``events_ms``), and prints the
    bf16 kernel's cut of the group (heads and warps a block, streamed or
    not, shared memory). K1 is also checked and timed at the long-clip
-   shape (B=2, T=128), where it takes the largest share of the forward,
+   shape (B=2, T=128), where it takes the largest share of the forward
+   (K3 in space mode checked there too, at B=1 and 2, as in phase 4),
    and K1 and K2 at the local heads of TimeSformer-L split over 2 and 4
    ranks (H = 8 and 4) at (16, 4) and (8, 16), both types checked, bf16
    timed with the cut ``plan_bf16`` picks there ("local-heads" rows), and
@@ -41,12 +42,18 @@ failed check raises and the script exits non-zero:
    int8, D=4096) at (B=2, T=4) and the serving shape (B=8, T=16, N=256,
    32768 rows), inputs seeded N(0, 1), the LayerNorm gamma 1 + 0.2 N(0, 1)
    and beta 0.1 N(0, 1): scales within rtol 1e-5 of the plain version's,
-   codes within 1, at most 0.1% of the codes changed. At the serving shape
-   in bf16 each kernel (device time in a profiler trace, and CUDA events
-   through the wrapper) and its plain version are timed, K4 and K5 beside
-   the bytes they move and the share of their bound they reach. K4 prints
-   its route (a warp a row, or a block a row) and is also checked at
-   D=4096 (its block route) and D=1000 (a ragged warp row).
+   codes within 1, at most 0.1% of the codes changed; K3's CLS partials
+   bit-equal to K1/K2's. At the serving shape in bf16 each kernel (device
+   time in a profiler trace, and CUDA events through the wrapper) and its
+   plain version are timed, K4 and K5 beside the bytes they move and the
+   share of their bound they reach; K3 as its two launches a call (the
+   attention pass and the row pass, ``row_int8_kernel``). K4 prints its
+   route (a warp a row, or a block a row) and is also checked at D=4096 (its block
+   route) and D=1000 (a ragged warp row). Then K1, K2 and K3 alone at the
+   train step's shape (B=16, T=4) and the loop's (B=32, T=4), as at the
+   serving shape (``_time_train_shapes``), and "profiler-check" (K1 and a
+   ``torch.mm`` in one trace: the launches it holds of each, with and
+   without idle margins around the window), repeated at the end of the run.
    Then ``torch._int_mm`` at the qkv shape (32768 x 1024 . 1024 x 3072),
    in both operand layouts, beside ``F.linear`` in bf16, as a line of its
    own (the port's int8 matmul is ``torch._int_mm``).
@@ -147,8 +154,7 @@ failed check raises and the script exits non-zero:
    ``torch.cuda.set_sync_debug_mode("error")``. Then 2 warm-up and 10 timed
    steps (CUDA events): steps/s, clips/s, the split of a step (backbone
    forward; decoder, losses and backward; optimizer), peak memory and
-   ``mfu_bf16``; and K1 and K2 alone at the train shape (B=16, T=4) as in
-   phase 3.
+   ``mfu_bf16`` (K1 and K2 alone at this shape are timed after phase 4).
 
 17. train-loop: ``cli.train.main``, the pretraining entry point, at the
    full width of phase 16 from seeded random weights, on a synthetic
@@ -177,8 +183,8 @@ failed check raises and the script exits non-zero:
    (RANK=0, WORLD_SIZE=1, LOCAL_RANK=0, MASTER_ADDR/PORT set by the
    script), so through ``nccl`` and the all-gather / all-reduce code: its
    losses within 1e-4 relative of the bf16 loop's of phase 18, the group
-   destroyed at the end. Before phase 17, K1, K2 and K3 alone at the
-   loop's shape (B=32, T=4), as in phase 16.
+   destroyed at the end. (K1, K2 and K3 alone at the loop's shape (B=32,
+   T=4) are timed after phase 4.)
 
 20. visualize (right after "eval-tools", on phase 12's checkpoints):
    ``cli.visualize.main --attn`` at 4 frames on a synthetic 256 x 342
@@ -319,26 +325,52 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int, kernels) -> float:
-    """Mean device time in ms of the kernels whose names contain one of
-    ``kernels`` (a string or a tuple of them) over ``iters`` calls of ``fn``,
-    from a ``torch.profiler`` trace: the kernels alone. Back-to-back calls
-    timed with events (``cuda_ms``) measure the host instead where the
-    wrapper's host time exceeds a short kernel's (K4)."""
+# Idle host time that opens and closes a traced window. Late in a long run
+# the trace placed device events outside a window that opened on the first
+# call (8 of 20 kernels kept: "profiler-check"); margins keep them all.
+TRACE_MARGIN_S = 0.25
+
+
+def _kernel_events(fn, iters: int, margin_s: float = TRACE_MARGIN_S) -> list:
+    """``key_averages()`` of a ``torch.profiler`` trace of the device over
+    ``iters`` calls of ``fn``, after one call outside it; ``margin_s``
+    seconds of idle host time open and close the traced window."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(margin_s)
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
+        time.sleep(margin_s)
+    return list(prof.key_averages())
+
+
+def _named(events, kernels) -> tuple[int, float]:
+    """(launches, device us) of the events whose names contain one of ``kernels``."""
     kernels = (kernels,) if isinstance(kernels, str) else kernels
-    hits = [e for e in prof.key_averages() if any(k in e.key for k in kernels)]
+    hits = [e for e in events if any(k in e.key for k in kernels)]
     us = sum(float(getattr(e, "self_device_time_total", None) or e.self_cuda_time_total) for e in hits)
-    if not us:
-        raise RuntimeError(f"the trace shows no device time for a kernel named like {kernels!r}")
+    return sum(e.count for e in hits), us
+
+
+def device_ms(fn, iters: int, kernels, per_call: int = 1) -> float:
+    """Mean device time in ms of the kernels whose names contain one of
+    ``kernels`` (a string or a tuple of them) over ``iters`` calls of ``fn``,
+    each of which launches ``per_call`` of them (K3: its attention and row
+    passes), from a ``torch.profiler`` trace: the kernels alone.
+    Back-to-back calls timed with events (``cuda_ms``) measure the host
+    instead where the wrapper's host time exceeds a short kernel's (K4).
+    Raises where the trace holds another number of their launches than
+    ``per_call * iters``: a trace that lost events would read low."""
+    events = _kernel_events(fn, iters)
+    launches, us = _named(events, kernels)
+    if launches != per_call * iters:
+        raise RuntimeError(f"the trace holds {launches} launches of kernels named like {kernels!r} over {iters} "
+                           f"calls that launch {per_call} each: it lost events, or the calls launch others")
     return us / iters / 1e3
 
 
@@ -548,11 +580,26 @@ def _plan(w: int, heads: int = HEADS) -> dict:
 def _time_space_long(device, peaks, gen) -> dict:
     """K1 at the long-clip shape (B=2, T=128) in bf16, where it takes 40% of
     the busy time: checked against the plain version as above, then the
-    kernel, the plain version and one SDPA call timed."""
+    kernel, the plain version and one SDPA call timed. Before it, K3 in
+    space mode at the long int8 path's (1, 128) and (2, 128): codes and
+    scales against the plain version, CLS partials bit-equal to K1's."""
     import torch
     import torch.nn.functional as F
 
     from helping_hand_for_egocentric_videos_torch.ops import divided_attention as da
+
+    for b in (1, 2):
+        qkv = torch.randn(b, LONG_T, N, 3 * D, generator=gen, device=device).to(torch.bfloat16)
+        ck, cv, cq = (torch.randn(b, D, generator=gen, device=device).to(torch.bfloat16) for _ in range(3))
+        got, parts = da.divided_patch_attention(qkv, ck, cv, cq, mode="space", heads=HEADS, quant_out=True)
+        _, parts0 = da.divided_patch_attention(qkv, ck, cv, cq, mode="space", heads=HEADS)
+        want, _ = da.divided_patch_attention_ref(qkv, ck, cv, cq, mode="space", heads=HEADS, quant_out=True)
+        res = {**_quant_check(got, want), "partials_as_without_quant": all(map(torch.equal, parts, parts0))}
+        say("kernel-vs-plain", kernel="divided_attention_space_int8", B=b, T=LONG_T, dtype="bfloat16", **res)
+        if not res["ok"] or not res["partials_as_without_quant"]:
+            raise AssertionError(f"K3 space at (B={b}, T={LONG_T}) disagrees with its plain version or K1: {res}")
+        del qkv, ck, cv, cq, got, want, parts, parts0
+        torch.cuda.empty_cache()
 
     b, t = 2, LONG_T
     qkv = torch.randn(b, t, N, 3 * D, generator=gen, device=device).to(torch.bfloat16)
@@ -656,6 +703,96 @@ def _time_local_heads(device, peaks) -> list[dict]:
     return rows
 
 
+def _time_train_shapes(device, peaks) -> dict:
+    """K1, K2 and K3 (both modes) alone at the train step's shape (B=16,
+    T=4) and the loop's (B=32 clips, T=4), in bf16: checked against their
+    plain versions, then device time in a profiler trace (K3's two
+    launches), CUDA events, the plain version, one SDPA call (K1, K2) and
+    the bound. Called right after phase 4 (``device_ms`` refuses a trace
+    that lacks a launch). K4 and K5 see 32 x 4 x 256 = 32768 rows in the
+    loop, the rows of phase 4's timing."""
+    import torch
+    import torch.nn.functional as F
+
+    from helping_hand_for_egocentric_videos_torch.ops import divided_attention as da
+
+    out = {}
+    for b, t, at, seed in ((TRAIN_B, TRAIN_T, "train", SEED + 9), (2 * LOOP_ITEMS, LOOP_T, "train-loop", SEED + 13)):
+        gen = torch.Generator(device=device).manual_seed(seed)
+        for mode in ("space", "time"):
+            qkv = torch.randn(b, t, N, 3 * D, generator=gen, device=device).to(torch.bfloat16)
+            ck, cv, cq = (torch.randn(b, D, generator=gen, device=device).to(torch.bfloat16) for _ in range(3))
+            err, finite, _ = _kernel_vs_plain(qkv, ck, cv, cq, mode)
+            got, _ = da.divided_patch_attention(qkv, ck, cv, cq, mode=mode, heads=HEADS, quant_out=True)
+            want, _ = da.divided_patch_attention_ref(qkv, ck, cv, cq, mode=mode, heads=HEADS, quant_out=True)
+            qres = _quant_check(got, want)
+            if not finite or not err <= TOL["bfloat16"] or not qres["ok"]:
+                raise AssertionError(f"{mode} kernels disagree with their plain versions at the {at} shape: "
+                                     f"{err} {qres}")
+            q, k, v = _sdpa_inputs(qkv, ck, cv, mode)
+            for quant in (False, True):
+                def run(qkv=qkv, ck=ck, cv=cv, cq=cq, mode=mode, quant=quant):
+                    return da.divided_patch_attention(qkv, ck, cv, cq, mode=mode, heads=HEADS, quant_out=quant)
+
+                def plain(qkv=qkv, ck=ck, cv=cv, cq=cq, mode=mode, quant=quant):
+                    return da.divided_patch_attention_ref(qkv, ck, cv, cq, mode=mode, heads=HEADS,
+                                                          quant_out=quant)
+
+                res = {"B": b, "T": t, "max_abs_err": qres["max_abs_err"] if quant else err,
+                       "ms": device_ms(run, 20, (ATTENTION_KERNEL, ROW_KERNEL) if quant else ATTENTION_KERNEL,
+                                       2 if quant else 1),
+                       "events_ms": cuda_ms(run, 20), "plain_ms": cuda_ms(plain, 5),
+                       "library_ms": None if quant else cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20)}
+                res["bound_ms"], res["bound_by"] = _bound_ms(qkv, mode, peaks, quant_out=quant)
+                key = f"{mode}_int8" if quant else mode
+                say("kernel-timing", mode=key, at=at, **res)
+                out.setdefault(key, {})[at] = res
+            del qkv, ck, cv, cq, q, k, v, got, want
+            torch.cuda.empty_cache()
+    return out
+
+
+def phase_profiler_check(at: str) -> dict:
+    """"profiler-check": K1 at the train shape (16, 4) and one bf16
+    ``torch.mm`` a call, 20 calls in a ``torch.profiler`` trace of the
+    device: the launches of each that the trace holds, in a window that
+    opens on the first call and in one with ``TRACE_MARGIN_S`` of idle host
+    time on each side (``device_ms``'s). Run after phase 4 and again at the
+    end of the run, where traces without margins lost kernel events. The
+    ``torch.mm`` launches (through PyTorch's runtime) tell whether the trace
+    loses every kernel or only those of this repository's libraries (their
+    own static CUDA runtime, loaded with ctypes); the margins, whether it
+    drops events that its clock places outside the window."""
+    import torch
+
+    from helping_hand_for_egocentric_videos_torch.ops import divided_attention as da
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    qkv = torch.randn(TRAIN_B, TRAIN_T, N, 3 * D, generator=gen, device="cuda").to(torch.bfloat16)
+    ck, cv, cq = (torch.randn(TRAIN_B, D, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(3))
+    a = torch.randn(1024, 1024, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def call():
+        da.divided_patch_attention(qkv, ck, cv, cq, mode="space", heads=HEADS)
+        torch.mm(a, a)
+
+    iters = 20
+    res = {"at": at, "calls": iters}
+    for margin in (0.0, TRACE_MARGIN_S):
+        events = _kernel_events(call, iters, margin)
+        launches, us = _named(events, ATTENTION_KERNEL)
+        other = sum(e.count for e in events if ATTENTION_KERNEL not in e.key
+                    and e.device_type == torch.autograd.DeviceType.CUDA)
+        res[f"margin_{margin}_s"] = {"attention_launches_in_trace": launches, "other_kernels_in_trace": other,
+                                     "attention_device_ms": us / iters / 1e3 if launches else None}
+    res["attention_events_ms"] = cuda_ms(lambda: da.divided_patch_attention(qkv, ck, cv, cq, mode="space",
+                                                                            heads=HEADS), iters)
+    say("profiler-check", **res)
+    del qkv, ck, cv, cq, a
+    torch.cuda.empty_cache()
+    return res
+
+
 def _quant_check(got, want) -> dict:
     """Quantized outputs (codes int8, scales f32) of a kernel against its
     plain version on the same inputs."""
@@ -728,8 +865,8 @@ def phase_int8_kernels(device, peaks):
             raise AssertionError(f"{name} disagrees with its plain version: {shape} {res}")
         return res
 
-    def entry(name, source, replaces, last, timed, fn, plain, bound, kernels, nbytes=None, **extra):
-        ms, events_ms, plain_ms = device_ms(fn, 20, kernels), cuda_ms(fn, 20), cuda_ms(plain, 5)
+    def entry(name, source, replaces, last, timed, fn, plain, bound, kernels, nbytes=None, per_call=1, **extra):
+        ms, events_ms, plain_ms = device_ms(fn, 20, kernels, per_call), cuda_ms(fn, 20), cuda_ms(plain, 5)
         bound_ms, bound_by = bound
         if nbytes is not None:  # the per-row passes: bytes moved and the share of the bound reached
             extra.update(bytes_moved=nbytes, achieved_tb_per_s=nbytes / (ms * 1e-3) / 1e12,
@@ -766,7 +903,7 @@ def phase_int8_kernels(device, peaks):
             {"B": b, "T": t, "N": N, "H": HEADS, "dh": DH},
             lambda: da.divided_patch_attention(qkv, ck, cv, cq, mode=mode, heads=HEADS, quant_out=True),
             lambda: da.divided_patch_attention_ref(qkv, ck, cv, cq, mode=mode, heads=HEADS, quant_out=True),
-            _bound_ms(qkv, mode, peaks, quant_out=True), (ATTENTION_KERNEL, ROW_KERNEL),
+            _bound_ms(qkv, mode, peaks, quant_out=True), (ATTENTION_KERNEL, ROW_KERNEL), per_call=2,
         )
         del qkv, ck, cv, cq, got, want, parts, parts0
         torch.cuda.empty_cache()
@@ -1553,44 +1690,10 @@ def _train_guard(device) -> dict:
     return raised
 
 
-def _time_train_shape(device, peaks) -> dict:
-    """K1 and K2 alone at the train shape (B=16, T=4) in bf16: checked
-    against the plain version, then device time in a profiler trace, CUDA
-    events, the plain version and one SDPA call, beside the bound."""
-    import torch
-    import torch.nn.functional as F
-
-    from helping_hand_for_egocentric_videos_torch.ops import divided_attention as da
-
-    gen = torch.Generator(device=device).manual_seed(SEED + 9)
-    out = {}
-    for mode in ("space", "time"):
-        qkv = torch.randn(TRAIN_B, TRAIN_T, N, 3 * D, generator=gen, device=device).to(torch.bfloat16)
-        ck, cv, cq = (torch.randn(TRAIN_B, D, generator=gen, device=device).to(torch.bfloat16) for _ in range(3))
-        err, finite, _ = _kernel_vs_plain(qkv, ck, cv, cq, mode)
-        if not finite or not err <= TOL["bfloat16"]:
-            raise AssertionError(f"{mode} kernel disagrees with the plain version at the train shape: {err}")
-        q, k, v = _sdpa_inputs(qkv, ck, cv, mode)
-
-        def run(qkv=qkv, ck=ck, cv=cv, cq=cq, mode=mode):
-            return da.divided_patch_attention(qkv, ck, cv, cq, mode=mode, heads=HEADS)
-
-        res = {"B": TRAIN_B, "T": TRAIN_T, "max_abs_err": err, "tolerance": TOL["bfloat16"],
-               "ms": device_ms(run, 20, ATTENTION_KERNEL), "events_ms": cuda_ms(run, 20),
-               "plain_ms": cuda_ms(lambda: da.divided_patch_attention_ref(qkv, ck, cv, cq, mode=mode, heads=HEADS), 5),
-               "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20)}
-        res["bound_ms"], res["bound_by"] = _bound_ms(qkv, mode, peaks)
-        say("kernel-timing", mode=mode, at="train", **res)
-        out[mode] = res
-        del qkv, ck, cv, cq, q, k, v
-        torch.cuda.empty_cache()
-    return out
-
-
 def phase_train(card, peaks, device="cuda", backbone_name="timesformer_large", b=TRAIN_B):
     """The pretraining step at full width: kernel route vs plain route,
     8 steps with dropout (launch counts, frozen parameters, no host sync),
-    then timing. -> (launches of the main path, K1/K2 at the train shape)."""
+    then timing. -> (launches of the main path, the checks and timing)."""
     import torch
 
     from helping_hand_for_egocentric_videos_torch.train import TrainConfig, TrainState, make_train_step
@@ -1697,7 +1800,7 @@ def phase_train(card, peaks, device="cuda", backbone_name="timesformer_large", b
     say("train-timing", **timing)
     del state, backbone, decoder, batch, noun_dict, grid, fmap, video, loss
     torch.cuda.empty_cache()
-    return launches, _time_train_shape(device, peaks), {"vs_plain": vs_plain, "timing": timing}
+    return launches, {"vs_plain": vs_plain, "timing": timing}
 
 
 # ---------------------------------------------------------------- the loop
@@ -2537,49 +2640,6 @@ def phase_train_tp(card, root: Path, device="cuda", backbone_name="timesformer_l
     return {k: ref["launches"][k] + sum(r["launches"][k] + r["loop"]["launches"][k] for r in ranks) for k in _counters()}
 
 
-def _time_loop_shape(device, peaks) -> dict:
-    """K1, K2 and K3 (both modes) alone at the loop's shape (B=32 clips,
-    T=4) in bf16, as ``_time_train_shape`` (K4 and K5 see 32 x 4 x 256 =
-    32768 rows there, the rows of phase 4's timing)."""
-    import torch
-    import torch.nn.functional as F
-
-    from helping_hand_for_egocentric_videos_torch.ops import divided_attention as da
-
-    gen = torch.Generator(device=device).manual_seed(SEED + 13)
-    b = 2 * LOOP_ITEMS
-    out = {}
-    for mode in ("space", "time"):
-        qkv = torch.randn(b, LOOP_T, N, 3 * D, generator=gen, device=device).to(torch.bfloat16)
-        ck, cv, cq = (torch.randn(b, D, generator=gen, device=device).to(torch.bfloat16) for _ in range(3))
-        err, finite, _ = _kernel_vs_plain(qkv, ck, cv, cq, mode)
-        got, _ = da.divided_patch_attention(qkv, ck, cv, cq, mode=mode, heads=HEADS, quant_out=True)
-        want, _ = da.divided_patch_attention_ref(qkv, ck, cv, cq, mode=mode, heads=HEADS, quant_out=True)
-        qres = _quant_check(got, want)
-        if not finite or not err <= TOL["bfloat16"] or not qres["ok"]:
-            raise AssertionError(f"{mode} kernels disagree with their plain versions at the loop's shape: "
-                                 f"{err} {qres}")
-        q, k, v = _sdpa_inputs(qkv, ck, cv, mode)
-        for quant in (False, True):
-            def run(qkv=qkv, ck=ck, cv=cv, cq=cq, mode=mode, quant=quant):
-                return da.divided_patch_attention(qkv, ck, cv, cq, mode=mode, heads=HEADS, quant_out=quant)
-
-            def plain(qkv=qkv, ck=ck, cv=cv, cq=cq, mode=mode, quant=quant):
-                return da.divided_patch_attention_ref(qkv, ck, cv, cq, mode=mode, heads=HEADS, quant_out=quant)
-
-            res = {"B": b, "T": LOOP_T, "max_abs_err": qres["max_abs_err"] if quant else err,
-                   "ms": device_ms(run, 20, (ATTENTION_KERNEL, ROW_KERNEL) if quant else ATTENTION_KERNEL),
-                   "events_ms": cuda_ms(run, 20), "plain_ms": cuda_ms(plain, 5),
-                   "library_ms": None if quant else cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20)}
-            res["bound_ms"], res["bound_by"] = _bound_ms(qkv, mode, peaks, quant_out=quant)
-            key = f"{mode}_int8" if quant else mode
-            say("kernel-timing", mode=key, at="train-loop", **res)
-            out[key] = res
-        del qkv, ck, cv, cq, q, k, v, got, want
-        torch.cuda.empty_cache()
-    return out
-
-
 # ---------------------------------------------------------------- the eval harnesses
 EVAL_MCQ, EVAL_MCQ_PER_FORWARD, EVAL_MCQ_T = 40, 4, 4  # items; items a forward (5 clips each); frames
 EPIC_CLIPS, EPIC_VIDEOS, EPIC_FRAMES, EPIC_HW, EPIC_T, EPIC_BATCH = 64, 3, 150, (256, 456), 16, 8
@@ -3357,6 +3417,9 @@ def main():
     for row in local:
         report[row["mode"]].setdefault("local_heads", []).append(row)
     report.update(phase_int8_kernels("cuda", peaks))
+    for key, cells in _time_train_shapes("cuda", peaks).items():  # before the phases that spoil traces
+        report[key].update({"train_shape": cells["train"], "loop_shape": cells["train-loop"]})
+    phase_profiler_check("after phase 4")
     report["headgrid"] = phase_headgrid("cuda", peaks)
     phase_int_mm("cuda", peaks)
     model = build_serving_model("cuda")
@@ -3374,14 +3437,7 @@ def main():
     del long16, long8
     torch.cuda.empty_cache()
     launches_eval = phase_eval(card)
-    launches_train, train_shape, _ = phase_train(card, peaks)
-    for mode in ("space", "time"):
-        report[mode]["train_shape"] = train_shape[mode]
-    # the kernels alone at the loop's shape before the loops: timed after the
-    # loop's traced step, device_ms read a third of the CUDA events' time
-    # (K1 0.086 against 0.252 ms), kernel events missing from its trace
-    for key, res in _time_loop_shape("cuda", peaks).items():
-        report[key]["loop_shape"] = res
+    launches_train, _ = phase_train(card, peaks)
     loop_root = BUILD / "chip_smoke_loop"
     shutil.rmtree(loop_root, ignore_errors=True)
     launches_loop, fixture, _ = phase_train_loop(card, loop_root)
@@ -3395,6 +3451,7 @@ def main():
     phase_clip_zoo(card, vit_path, loop_root)
     shutil.rmtree(loop_root, ignore_errors=True)
     phase_doctor(card)
+    phase_profiler_check("end")
     # launches on the main path: the serving runs at 16 and at 128 frames, bf16
     # and int8, the eval CLIs and visualize, the train steps, the training loops,
     # both ranks of the split backbone's steps and loop, and the loop on the CLIP

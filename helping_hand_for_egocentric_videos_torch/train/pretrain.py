@@ -160,7 +160,9 @@ def _tree(state: TrainState, best_acc: float) -> dict:
 
 def pretrain(cfg: ExperimentConfig, *, max_steps: int | None = None, eval_limit: int | None = None, models=None,
              device=None, sync_debug: str | None = None):
-    """Run pretraining. Returns (final TrainState, best Inter-video acc).
+    """Run pretraining. Returns (final TrainState, best Inter-video acc);
+    under ``torchrun`` every rank returns rank 0's best, as every JAX
+    process returns its own run's.
 
     ``models``: optional prebuilt (lavila_cfg, backbone, dec_cfg, decoder)
     on the CPU, as ``build_models`` returns them (tests run the loop on
@@ -372,4 +374,8 @@ def pretrain(cfg: ExperimentConfig, *, max_steps: int | None = None, eval_limit:
     if logger is not None:
         logger.close()
         val_logger.close()
+    if dp is not None:  # only data group 0 evaluates: every rank returns rank 0's best
+        best = torch.tensor([best_acc], dtype=torch.float64, device=device)
+        torch.distributed.broadcast(best, src=0)
+        best_acc = best.item()
     return state, best_acc

@@ -388,25 +388,39 @@ def test_all_zero_time_attention_gives_exact_zeros(request, device, dtype):
     assert all(torch.isfinite(part).all() for part in parts)
 
 
+# (mode, (B, T, N, H, dh)) of K3's checks: small, ragged with dh 32 and the
+# serving shape in both modes; then the models' other head counts (8, 12),
+# the int8 loop's tubes (T = 4) and the long int8 path's frames (B = 2,
+# T = 128)
+QUANT_SHAPES = [
+    (mode, shape) for mode in ("space", "time")
+    for shape in ((2, 4, 64, 2, 64), (1, 3, 49, 4, 32), (2, 16, 256, 16, 64))
+] + [
+    ("space", (2, 4, 64, 8, 64)), ("time", (2, 16, 64, 8, 64)),
+    ("space", (1, 4, 256, 12, 64)), ("time", (1, 16, 64, 12, 64)),
+    ("time", (2, 4, 256, 16, 64)), ("space", (2, 128, 256, 16, 64)),
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize(
-    "shape",  # (B, T, N, H, dh): small, ragged with dh 32, serving shape
-    [(2, 4, 64, 2, 64), (1, 3, 49, 4, 32), (2, 16, 256, 16, 64)],
-)
-@pytest.mark.parametrize("mode", ["space", "time"])
+@pytest.mark.parametrize("mode, shape", QUANT_SHAPES)
 def test_cuda_quant_out_kernel_matches_plain(cuda_device, mode, shape, dtype):
     """K3 on the card: codes and scales against the plain version on the
-    same inputs (at most 0.1% of the codes differ, by 1), and the CLS
-    partials exactly those of K1/K2."""
+    same inputs (at most 0.1% of the codes differ, by 1), the CLS partials
+    exactly those of K1/K2, the call counted once."""
     b, t, n, heads, dh = shape
     d = heads * dh
     dt = getattr(torch, dtype)
     g = torch.Generator(device=cuda_device).manual_seed(1)
     qkv = torch.randn(b, t, n, 3 * d, generator=g, device=cuda_device).to(dt)
     ck, cv, cq = (torch.randn(b, d, generator=g, device=cuda_device).to(dt) for _ in range(3))
-    (q, s), parts = da.divided_patch_attention(qkv, ck, cv, cq, mode=mode, heads=heads, quant_out=True)
-    _, parts0 = da.divided_patch_attention(qkv, ck, cv, cq, mode=mode, heads=heads)
+    route = {"head_grid": False if mode == "time" else None}
+    attr = f"launches_{mode}_quant"
+    before = getattr(da.divided_patch_attention, attr)
+    (q, s), parts = da.divided_patch_attention(qkv, ck, cv, cq, mode=mode, heads=heads, quant_out=True, **route)
+    assert getattr(da.divided_patch_attention, attr) == before + 1
+    _, parts0 = da.divided_patch_attention(qkv, ck, cv, cq, mode=mode, heads=heads, **route)
     want = da.divided_patch_attention_ref(qkv, ck, cv, cq, mode=mode, heads=heads, quant_out=True)[0]
     torch.cuda.synchronize()
     _assert_codes_close((q.cpu().numpy(), s.cpu().numpy()),
@@ -528,9 +542,16 @@ def test_cuda_kernel_tilings_match_plain(cuda_device, mode, shape, dtype):
     torch.testing.assert_close(cls, want_cls, rtol=0, atol=1e-4)
 
 
+# K3's tilings beyond K1/K2's: streamed frames at 16 heads, 12 heads over
+# ragged frames and over 3-tile tubes
+QUANT_TILINGS = TILINGS + [
+    ("space", (1, 1, 1024, 16, 64)), ("space", (1, 2, 196, 12, 64)), ("time", (1, 33, 8, 12, 64)),
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("mode, shape", TILINGS)
+@pytest.mark.parametrize("mode, shape", QUANT_TILINGS)
 def test_cuda_quant_out_kernel_tilings_match_plain(cuda_device, mode, shape, dtype):
     """K3 at the same tilings: codes within 1 of the plain version's, at
     most 0.1% changed, scales within rtol 1e-5; CLS partials bit-equal to

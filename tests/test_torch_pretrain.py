@@ -277,13 +277,13 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _split_loop_rank(rank: int, port: int, path: str):
-    """One of two ranks of the loop with ``model_parallel=2``."""
+def _split_loop_rank(rank: int, port: int, path: str, eval_limit: int = 2):
+    """One of two ranks of the loop, configured by the payload at ``path``."""
     os.environ.update(RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
                       MASTER_PORT=str(port))
     torch.set_num_threads(1)
     cfg, models = torch.load(path, weights_only=False)
-    state, best = tpre.pretrain(cfg, max_steps=3, eval_limit=2, models=models, device="cpu")
+    state, best = tpre.pretrain(cfg, max_steps=3, eval_limit=eval_limit, models=models, device="cpu")
     torch.save({"step": state.step, "best": best}, f"{path}.rank{rank}")
     torch.distributed.destroy_process_group()
 
@@ -317,6 +317,23 @@ def test_loop_with_a_split_backbone_logs_the_one_process_loop(jx, egoclip_fixtur
     jval, tval = (_rows(tmp_path / p / "run" / "val_metrics.jsonl") for p in ("one", "split"))
     assert [{k: v for k, v in r.items() if k != "time"} for r in tval] == \
         [{k: v for k, v in r.items() if k != "time"} for r in jval]
+
+
+def test_data_ranks_return_the_one_process_best(jx, egoclip_fixture, tmp_path):
+    """Two ``gloo`` data ranks (``model_parallel=1``): only data group 0
+    runs the online EgoMCQ, yet both ranks return the best Inter-video
+    accuracy of the one-process loop on the same global batch."""
+    meta, data = egoclip_fixture
+    one = _configure(ExperimentConfig(), meta, data, str(tmp_path / "one"), "run", eval_freq=1)
+    two = _configure(ExperimentConfig(), meta, data, str(tmp_path / "two"), "run", eval_freq=1)
+    two.parallel.num_devices = 2
+    path = str(tmp_path / "payload.pt")
+    torch.save((two, _models(jx)[1]), path)
+    mp.start_processes(_split_loop_rank, args=(_free_port(), path, 4), nprocs=2, start_method="spawn")
+    ranks = [torch.load(f"{path}.rank{r}", weights_only=False) for r in range(2)]
+    _, best = tpre.pretrain(one, max_steps=3, eval_limit=4, models=_models(jx)[1], device="cpu")
+    assert best > 0.0  # all 4 EgoMCQ items: 50.0 here
+    assert [r["best"] for r in ranks] == [best, best]
 
 
 def _fixture(tmp_path, noun_width):

@@ -2,12 +2,16 @@
 
 Attention (N=256, H=16, dh=64, bf16 inputs seeded N(0, 1)): K1 at the
 16-frame serving shape (B=8, T=16) and the long-clip shape (B=2, T=128), K2
-and K3 at (8, 16), K2 forced at (2, 128), and K6 (the head-grid time
-kernel, forced) at (1, 128) and (2, 128). Each kernel through its wrapper, its plain version and one
+and K3 at (8, 16), K3 at the int8 loop's (32, 4) and in space mode at
+(2, 128), K2 forced at (2, 128), and K6 (the head-grid time kernel,
+forced) at (1, 128) and (2, 128). Each kernel through its wrapper, its plain version and one
 ``F.scaled_dot_product_attention`` call over [CLS | group keys] (the
 yardstick; the port never calls it), with CUDA events over ``--iters``
-launches, ``--repeat`` times in turn; beside ``chip_smoke._bound_ms`` and
-the kernel's cut (``chip_smoke._plan``, ``chip_smoke._headgrid_plan``).
+launches, ``--repeat`` times in turn, and the device time of every kernel
+a call launches in a ``torch.profiler`` trace (``device_ms``, with the
+launches a call by name: K3 is two, its attention and row passes); beside
+``chip_smoke._bound_ms`` and the kernel's cut (``chip_smoke._plan``,
+``chip_smoke._headgrid_plan``).
 
 Rows (32768 rows of the serving shape, bf16, seeded N(0, 1)): K4
 (LayerNorm -> int8, D=1024, gamma 1 + 0.2 N(0, 1), beta 0.1 N(0, 1)) and K5
@@ -16,15 +20,17 @@ moves, its bound (``chip_smoke._rows_bound_ms``) and the share of it
 reached, from the kernel's device time in a ``torch.profiler`` trace
 (``chip_smoke.device_ms``: back-to-back calls timed with events measure the
 wrapper's host time where it exceeds the kernel's); K4 with its route
-(``chip_smoke._ln_plan``). K6 also reports its device time.
+(``chip_smoke._ln_plan``).
 
 One JSON line per (kernel, shape), after the card's ``nvidia-smi`` name and
 power limit.
 
     python3 tools/torch_attention_bench.py [--iters 50] [--repeat 3] [--kernels K6 K4]
 
-To compare two versions on one card, run it from the root of each checkout
-in the same call, in turns (old, new, new, old).
+To compare two versions on one card, copy this script and ``chip_smoke.py``
+into the other checkout and run it from the root of each checkout in the
+same call, in turns (old, new, new, old): it times each checkout's own
+wrappers.
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ from helping_hand_for_egocentric_videos_torch.ops._build import library  # noqa:
 CASES = (  # (kernel, mode, quant_out, head_grid, B, T)
     ("K1", "space", False, None, 8, 16), ("K1", "space", False, None, 2, 128),
     ("K2", "time", False, False, 8, 16), ("K3", "space", True, None, 8, 16), ("K3", "time", True, None, 8, 16),
+    ("K3", "space", True, None, 32, 4), ("K3", "time", True, None, 32, 4), ("K3", "space", True, None, 2, 128),
     ("K2", "time", False, False, 2, 128), ("K6", "time", False, True, 1, 128), ("K6", "time", False, True, 2, 128),
 )
 ROW_CASES = (("K4", 1024, 14), ("K5", 4096, 12))  # (kernel, D, f32 ops a value)
@@ -58,6 +65,15 @@ def _plan_of(lib: str, symbol: str, plan_fn, *args):
     """A kernel's cut, or None where the checkout's library has no query
     for it (an older version of the kernel, in an A/B across checkouts)."""
     return plan_fn(*args) if hasattr(library(lib), symbol) else None
+
+
+def _window(fn, iters: int) -> dict:
+    """Every kernel one call of ``fn`` launches, from a ``torch.profiler``
+    trace of ``iters`` calls (``chip_smoke._kernel_events``): the device ms
+    a call (all of them) and the launches a call by kernel name."""
+    kernels = [e for e in chip_smoke._kernel_events(fn, iters) if e.device_type == torch.autograd.DeviceType.CUDA]
+    us = sum(float(getattr(e, "self_device_time_total", None) or e.self_cuda_time_total) for e in kernels)
+    return {"device_ms": us / iters / 1e3, "launches_a_call": {e.key[:60]: e.count / iters for e in kernels}}
 
 
 def _times(runs: dict, iters: int, repeat: int) -> dict:
@@ -82,14 +98,16 @@ def bench_attention(args, card, peaks):
             "library_ms": lambda: F.scaled_dot_product_attention(q, k, v),
         }
         times = _times(runs, args.iters, args.repeat)
-        extra = {"device_ms": chip_smoke.device_ms(runs["ms"], args.iters, "headgrid_bf16_kernel")} if head_grid else {}
+        windows = [_window(runs["ms"], args.iters) for _ in range(args.repeat)]
+        extra = {"device_ms": min(w["device_ms"] for w in windows), "device_all": [w["device_ms"] for w in windows],
+                 "launches_a_call": windows[0]["launches_a_call"]}
         bound_ms, bound_by = chip_smoke._bound_ms(qkv, mode, peaks, quant_out=quant_out)
         plan = (_plan_of("divided_attention_long", "hh_time_attention_headgrid_plan", chip_smoke._headgrid_plan, t,
                          b * n * heads) if head_grid else chip_smoke._plan(n if mode == "space" else t))
         print(json.dumps({"metric": "attention_timing", "kernel": kernel, "mode": mode, "quant_out": quant_out,
                           "B": b, "T": t, "N": n, "H": heads, "dh": chip_smoke.DH, "card": card,
                           **{key: min(v) for key, v in times.items()}, "all": times, "bound_ms": bound_ms,
-                          "bound_by": bound_by, "bound_share": bound_ms / min(times["ms"]), "plan": plan, **extra}),
+                          "bound_by": bound_by, "bound_share": bound_ms / extra["device_ms"], "plan": plan, **extra}),
               flush=True)
         del qkv, ck, cv, cq, q, k, v, runs
         torch.cuda.empty_cache()
