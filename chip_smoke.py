@@ -54,6 +54,10 @@ failed check raises and the script exits non-zero:
    serving shape (``_time_train_shapes``), and "profiler-check" (K1 and a
    ``torch.mm`` in one trace: the launches it holds of each, with and
    without idle margins around the window), repeated at the end of the run.
+   Then, checked only, the shapes of phase 27's forwards that no other
+   check covers, in bf16 (``BENCH_SHAPES``): K1, K2 and K3 at the bench's
+   eval batch (64, 16), K4 and K5 on its int8 eval's 262144 rows (past
+   65535) and its int8 train step's 16384.
    Then ``torch._int_mm`` at the qkv shape (32768 x 1024 . 1024 x 3072),
    in both operand layouts, beside ``F.linear`` in bf16, as a line of its
    own (the port's int8 matmul is ``torch._int_mm``).
@@ -196,7 +200,9 @@ failed check raises and the script exits non-zero:
    bf16 maps against the f32 plain ones with a cosine of at least 0.99 a
    query.
 21. profile: ``utils.profiling.top_ops`` on the trace of phase 17's traced
-   step: device rows with names; the table printed.
+   step: device rows with names; the table printed; the trace holds the
+   step's 24 + 24 attention launches (its window opens and closes on idle
+   margins).
 22. clip-bootstrap: a synthetic stock OpenAI ViT-L/14 at its published
    shapes (visual 1024 x 24, patch 14, 224 px, ``visual.proj`` (1024,
    768); text 768 x 12, vocabulary 49408, context 77), written with
@@ -243,11 +249,20 @@ failed check raises and the script exits non-zero:
    the same loop in one process: losses within rtol 1e-4; the online
    EgoMCQ, which both ranks run in bf16, with its similarities within 5e-3
    and the same picks but at near-ties.
+27. bench (after "doctor"): ``tools/torch_bench.py`` with its defaults in a
+   process of its own (the headline bench: the train step at 16 clips of 4
+   frames in bf16 and with the int8 backbone, the end-to-end input path,
+   the 16-frame eval in int8 and, last, in bf16, at the bench's batches):
+   rc 0, every line JSON and none an error or a skip, the stages in order
+   with the bf16 headline last and above 0, each ``mfu`` in (0, 1.05], and
+   each stage's launches a forward or a step those of "serve" (bf16),
+   "serve-int8" (int8) and "train" / "train-loop-int8" (the train steps).
 
 Then one ``{"kernels": [...]}`` line, each kernel's launches summed over
-phases 5, 6, 10, 12-20, 22, 25 and 26, and, last, ``{"ok": true, "device":
-{...}}``. Time attention is zero-initialised in the model (its qkv feeds
-the kernel zeros), so the smoke gives its weights seeded N(0, 0.02) values.
+phases 5, 6, 10, 12-20, 22 and 25-27 (phase 27's as the bench counted them
+over its stages), and, last, ``{"ok": true, "device": {...}}``. Time
+attention is zero-initialised in the model (its qkv feeds the kernel
+zeros), so the smoke gives its weights seeded N(0, 0.02) values.
 """
 
 from __future__ import annotations
@@ -271,6 +286,9 @@ from functools import partial
 from pathlib import Path
 
 import numpy as np
+
+from helping_hand_for_egocentric_videos_torch.ops.counts import counters, read_counts, reset_counts
+from helping_hand_for_egocentric_videos_torch.utils.profiling import TRACE_MARGIN_S
 
 SEED = 0
 N, HEADS, DH = 256, 16, 64
@@ -299,11 +317,6 @@ INT8_COS_FLOOR = 0.9899
 # the kernels' names in a profiler trace: K1/K2 and K3's attention pass, the
 # block-row pass of K3 and K5
 ATTENTION_KERNEL, ROW_KERNEL = "attention_bf16_kernel", "row_int8_kernel"
-# Dense peaks from NVIDIA's data sheets: memory bytes/s and ops/s by type.
-PEAKS = {
-    "sxm": {"bytes": 3.35e12, "bfloat16": 989e12, "float32": 67e12},
-    "pcie": {"bytes": 2.0e12, "bfloat16": 756e12, "float32": 51e12},
-}
 
 
 def say(phase: str, **kw):
@@ -323,12 +336,6 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
-
-
-# Idle host time that opens and closes a traced window. Late in a long run
-# the trace placed device events outside a window that opened on the first
-# call (8 of 20 kernels kept: "profiler-check"); margins keep them all.
-TRACE_MARGIN_S = 0.25
 
 
 def _kernel_events(fn, iters: int, margin_s: float = TRACE_MARGIN_S) -> list:
@@ -752,6 +759,72 @@ def _time_train_shapes(device, peaks) -> dict:
     return out
 
 
+# (B, T) of the bench's forwards that no other check covers: its eval batch
+# (tools/torch_bench.py EVAL_BATCH, both types) for K1-K3, and the B*T*N rows
+# of its int8 eval (past 65535) and int8 train step for K4/K5
+BENCH_SHAPES = {"eval": (64, 16), "rows": ((64, 16), (16, 4))}
+
+
+def _check_bench_shapes(device) -> list[dict]:
+    """The kernels against their plain versions at ``BENCH_SHAPES`` in
+    bf16 (the bench's type), with phase 3's and phase 4's tolerances."""
+    import torch
+    from torch import nn
+
+    from helping_hand_for_egocentric_videos_torch.ops import act_quant as aq
+    from helping_hand_for_egocentric_videos_torch.ops import divided_attention as da
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 31)
+    checks = []
+    b, t = BENCH_SHAPES["eval"]
+    for mode in ("space", "time"):
+        qkv = torch.randn(b, t, N, 3 * D, generator=gen, device=device).to(torch.bfloat16)
+        ck, cv, cq = (torch.randn(b, D, generator=gen, device=device).to(torch.bfloat16) for _ in range(3))
+        err, finite, _ = _kernel_vs_plain(qkv, ck, cv, cq, mode)
+        check = {"kernel": f"divided_attention_{mode}", "B": b, "T": t, "dtype": "bfloat16", "max_abs_err": err,
+                 "tolerance": TOL["bfloat16"], "at": "bench"}
+        say("kernel-vs-plain", **check)
+        if not finite or not err <= TOL["bfloat16"]:
+            raise AssertionError(f"{mode} kernel disagrees with the plain version: {check}")
+        checks.append(check)
+        got, parts = da.divided_patch_attention(qkv, ck, cv, cq, mode=mode, heads=HEADS, quant_out=True)
+        _, parts0 = da.divided_patch_attention(qkv, ck, cv, cq, mode=mode, heads=HEADS)
+        want, _ = da.divided_patch_attention_ref(qkv, ck, cv, cq, mode=mode, heads=HEADS, quant_out=True)
+        torch.cuda.synchronize()
+        res = {"kernel": f"divided_attention_{mode}_int8", "B": b, "T": t, "dtype": "bfloat16", "at": "bench",
+               "partials_as_without_quant": all(torch.equal(x, y) for x, y in zip(parts, parts0)),
+               **_quant_check(got, want)}
+        say("kernel-vs-plain", **res)
+        if not (res["ok"] and res["partials_as_without_quant"]):
+            raise AssertionError(f"K3 {mode} disagrees with its plain version or K1/K2's partials: {res}")
+        checks.append(res)
+        del qkv, ck, cv, cq, got, want, parts, parts0
+        torch.cuda.empty_cache()
+
+    ln = nn.LayerNorm(D, device=device)
+    with torch.no_grad():
+        ln.weight.copy_(1.0 + 0.2 * torch.randn(D, generator=gen, device=device))
+        ln.bias.copy_(0.1 * torch.randn(D, generator=gen, device=device))
+    for name, d, fn, plain in (
+        ("layer_norm_int8", D, lambda x: aq.layer_norm_int8(ln, x, 1e-6),
+         lambda x: aq.layer_norm_int8_ref(ln, x, 1e-6)),
+        ("quick_gelu_int8", MLP, aq.quick_gelu_int8, aq.quick_gelu_int8_ref),
+    ):
+        for b, t in BENCH_SHAPES["rows"]:
+            x = torch.randn(b * t * N, d, generator=gen, device=device).to(torch.bfloat16)
+            got, want = fn(x), plain(x)
+            torch.cuda.synchronize()
+            res = {"kernel": name, "rows": x.shape[0], "D": d, "dtype": "bfloat16", "at": "bench",
+                   **_quant_check(got, want)}
+            say("kernel-vs-plain", **res)
+            if not res["ok"]:
+                raise AssertionError(f"{name} disagrees with its plain version: {res}")
+            checks.append(res)
+            del x, got, want
+            torch.cuda.empty_cache()
+    return checks
+
+
 def phase_profiler_check(at: str) -> dict:
     """"profiler-check": K1 at the train shape (16, 4) and one bf16
     ``torch.mm`` a call, 20 calls in a ``torch.profiler`` trace of the
@@ -1072,7 +1145,7 @@ def phase_int_mm(device, peaks):
     ops = 2 * m * k * n
     say("int-mm", M=m, K=k, N=n, exact=exact, ms=ms,
         tops={key: ops / (v * 1e-3) / 1e12 for key, v in ms.items()},
-        bound_ms={"int8": 1e3 * ops / 1979e12, "bfloat16": 1e3 * ops / peaks["bfloat16"]})
+        bound_ms={"int8": 1e3 * ops / peaks["int8"], "bfloat16": 1e3 * ops / peaks["bfloat16"]})
     if not exact:
         raise AssertionError("torch._int_mm disagrees with an exact float product")
 
@@ -1127,32 +1200,6 @@ def _check_embed_video(res, n, embed_dim, nq):
             raise AssertionError(f"bad boxes: shape {boxes.shape}")
 
 
-def _counters():
-    """Every kernel's launch count: (wrapper, attribute) by kernel name."""
-    from helping_hand_for_egocentric_videos_torch.ops import act_quant as aq
-    from helping_hand_for_egocentric_videos_torch.ops import divided_attention as da
-
-    f = da.divided_patch_attention
-    return {
-        "divided_attention_space": (f, "launches_space"),
-        "divided_attention_time": (f, "launches_time"),
-        "divided_attention_space_int8": (f, "launches_space_quant"),
-        "divided_attention_time_int8": (f, "launches_time_quant"),
-        "layer_norm_int8": (aq.layer_norm_int8, "launches"),
-        "quick_gelu_int8": (aq.quick_gelu_int8, "launches"),
-        "time_attention_headgrid": (f, "launches_time_headgrid"),
-    }
-
-
-def reset_counts():
-    for obj, attr in _counters().values():
-        setattr(obj, attr, 0)
-
-
-def read_counts() -> dict:
-    return {name: getattr(obj, attr) for name, (obj, attr) in _counters().items()}
-
-
 def launches_per_forward(model) -> dict:
     """What one video forward must launch, once a block each: the time
     kernel is K6 where ``needs_head_grid`` holds, else K2; space attention
@@ -1168,7 +1215,7 @@ def launches_per_forward(model) -> dict:
     depth, t, n, d = cfg.depth, cfg.num_frames, cfg.patches_per_frame, cfg.width
     plain = {"space": "divided_attention_space",
              "time": "time_attention_headgrid" if needs_head_grid(t, n, cfg.heads) else "divided_attention_time"}
-    want = dict.fromkeys(_counters(), 0)
+    want = dict.fromkeys(counters(), 0)
     fused = {m: model.int8 and d % 128 == 0 and _kernel_friendly(n, d, cfg.heads, t, m) for m in plain}
     for m, kernel in plain.items():
         if fused[m]:
@@ -1500,7 +1547,7 @@ def phase_serve_long(card, device="cuda", backbone="timesformer_large", frames=L
         parameters=sum(p.numel() for p in model.parameters()) + sum(p.numel() for p in decoder.parameters()),
         round_trip_equal=True)
     del model, decoder
-    return served[False][0], served[True][0], {k: served[False][1][k] + served[True][1][k] for k in _counters()}
+    return served[False][0], served[True][0], {k: served[False][1][k] + served[True][1][k] for k in counters()}
 
 
 TRAIN_B, TRAIN_T, TRAIN_R = 16, 4, 5  # one rank's share of the global batch 128 over 8 ranks
@@ -1963,8 +2010,13 @@ def _trace_busy(path) -> dict:
     the step and the wait for the device), the device's busy time (the
     kernels' and copies' durations) and its idle share, and the kernels
     launched."""
-    events = [e for e in json.loads(Path(path).read_text())["traceEvents"] if e.get("ph") == "X"]
-    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    from helping_hand_for_egocentric_videos_torch.utils.profiling import _DEVICE, _HOST
+
+    # the host's operators and CUDA calls and the device's work: not the
+    # profiler's own span of its window, which takes in its idle margins
+    events = [e for e in json.loads(Path(path).read_text())["traceEvents"]
+              if e.get("ph") == "X" and e.get("cat") in _DEVICE + _HOST]
+    device = [e for e in events if e.get("cat") in _DEVICE]
     wall = (max(e["ts"] + e["dur"] for e in events) - min(e["ts"] for e in events)) / 1e3
     busy = sum(e["dur"] for e in device) / 1e3
     return {"wall_ms": wall, "device_busy_ms": busy, "idle_share": 1 - busy / wall,
@@ -2637,7 +2689,7 @@ def phase_train_tp(card, root: Path, device="cuda", backbone_name="timesformer_l
             and loop["steps"] == [LOOP_REF_STEPS] * TP_RANKS and all(x == want for x in loop["launches"])
             and len(set(loop["best"])) == 1):
         raise AssertionError("the loop with a split backbone disagrees with the one-process loop (train-loop-tp line)")
-    return {k: ref["launches"][k] + sum(r["launches"][k] + r["loop"]["launches"][k] for r in ranks) for k in _counters()}
+    return {k: ref["launches"][k] + sum(r["launches"][k] + r["loop"]["launches"][k] for r in ranks) for k in counters()}
 
 
 # ---------------------------------------------------------------- the eval harnesses
@@ -2833,7 +2885,7 @@ def _eval_cli(module, argv, harness: str | None, card) -> dict:
         launches = read_counts()
         # ----
     forwards, rows = len(probe.embeddings), int(sum(len(e) for e in probe.embeddings))
-    want = dict.fromkeys(_counters(), 0)
+    want = dict.fromkeys(counters(), 0)
     for m in probe.forward_models:
         for k, v in launches_per_forward(m).items():
             want[k] += v
@@ -2972,7 +3024,7 @@ def phase_eval_epic(card, ckpts, root: Path, device="cuda", backbone="timesforme
         raise AssertionError("eval-epic: bad results or forwards (eval-epic line)")
     if not (cos8 >= INT8_COS_FLOOR).all():
         raise AssertionError(f"eval-epic: int8 vs bf16 embeddings, cosine {cos8.min()} < {INT8_COS_FLOOR}")
-    launches = {k: bf16["launches"][k] + runs["int8"]["launches"][k] for k in _counters()}
+    launches = {k: bf16["launches"][k] + runs["int8"]["launches"][k] for k in counters()}
     return launches, (meta, data), bf16["results"]
 
 
@@ -3008,7 +3060,7 @@ def phase_eval_egtea(card, ckpts, root: Path, device="cuda", backbone="timesform
         crops1=_summary(runs[1]), crops6=_summary(six), f32_videos=EGTEA_F32_VIDEOS, **check)
     if not ok:
         raise AssertionError("eval-egtea: bad results or forwards (eval-egtea line)")
-    return {k: runs[1]["launches"][k] + six["launches"][k] for k in _counters()}
+    return {k: runs[1]["launches"][k] + six["launches"][k] for k in counters()}
 
 
 def phase_eval_tools(card, ckpts, epic, epic_results: dict, root: Path, device="cuda",
@@ -3060,7 +3112,7 @@ def phase_eval_tools(card, ckpts, epic, epic_results: dict, root: Path, device="
                       "certified": report["certified"], "device": report["device"]})
     if not ok:
         raise AssertionError("eval-tools: parity_check's report is not what the same weights and data give")
-    return {k: fx["launches"][k] + rep["launches"][k] for k in _counters()}
+    return {k: fx["launches"][k] + rep["launches"][k] for k in counters()}
 
 
 # ---------------------------------------------------------------- the rest of the single-card surface
@@ -3356,16 +3408,83 @@ def phase_doctor(card):
 def phase_profile(card, log_dir: Path):
     """"profile": ``utils.profiling.top_ops`` on the trace of the train
     loop's profile step: device rows (kernels) with names, and the table
-    printed. Rows and names only: the trace loses kernel events after the
-    loop's earlier phases (PERF.md section 7), so no count is asked for."""
+    printed; and the trace must hold every attention launch of that bf16
+    step, K1 and K2 24 times each (``utils.profiling.trace`` opens and
+    closes its window on idle margins, so no edge kernel is lost)."""
     from helping_hand_for_egocentric_videos_torch.utils.profiling import top_ops
 
     rows = top_ops(str(log_dir), k=20)
     device_rows = [r for r in rows if r[1] == "device"]
+    events = json.loads((log_dir / "trace.json").read_text())["traceEvents"]
+    attention = sum(e.get("ph") == "X" and e.get("cat") == "kernel" and ATTENTION_KERNEL in e.get("name", "")
+                    for e in events)
+    want = 2 * 24
     say("profile", card=card, trace=str(log_dir / "trace.json"), rows=len(rows), device_rows=len(device_rows),
+        attention_launches=attention, attention_launches_expected=want,
         table=[{"self_ms": ms, "where": where, "name": name} for ms, where, name in rows])
     if not (device_rows and all(isinstance(r[2], str) and r[2] and r[0] >= 0 for r in rows)):
         raise AssertionError("profile: top_ops shows no device rows in the loop's trace (profile line)")
+    if attention != want:
+        raise AssertionError(f"profile: the traced step holds {attention} attention launches, not {want}: the "
+                             "trace lost kernel events (profile line)")
+
+
+BENCH_TIMEOUT_S = 480  # the bench's own budget is larger; a slower run fails the smoke
+BENCH_STAGES = ("device_probe", "train_clips_per_sec_per_chip_4f", "train_clips_per_sec_per_chip_4f_int8_backbone",
+                "clips_per_sec_e2e_16f_eval_bf16", "clips_per_sec_per_chip_16f_eval_int8",
+                "clips_per_sec_per_chip_16f_eval")
+
+
+def phase_bench(card):
+    """"bench": ``tools/torch_bench.py`` with its defaults, in a process of
+    its own. rc 0; every line JSON, none an ``_error`` or ``_skipped``
+    line, the stages in bench.py's order, the headline
+    ``clips_per_sec_per_chip_16f_eval`` last with a value above 0; each
+    ``mfu`` in (0, 1.05]; the launches a forward (``launches``, over the
+    stage's warm call) those of "serve" in bf16 (the e2e and eval lines)
+    and of "serve-int8" with int8, and a train step's K1 and K2 24 times
+    each (K3 24 + 24, K4 72, K5 24 with the int8 backbone). -> the stages'
+    launches (``launches_total``)."""
+    from types import SimpleNamespace
+
+    from helping_hand_for_egocentric_videos_torch.models import lavila
+
+    script = Path(__file__).resolve().parent / "tools" / "torch_bench.py"
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(script)], capture_output=True, text=True, timeout=BENCH_TIMEOUT_S,
+                          cwd=script.parent.parent)
+    seconds = time.perf_counter() - t0
+    try:
+        lines = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.strip()]
+    except ValueError as e:
+        raise AssertionError(f"bench: a line is not JSON ({e}); stdout tail: {proc.stdout[-2000:]}") from e
+    for ln in lines:
+        print("[bench-line] " + json.dumps(ln), flush=True)
+
+    def per_forward(t, int8):
+        return {k: v for k, v in launches_per_forward(
+            SimpleNamespace(lavila_cfg=lavila.timesformer_large_config(t), int8=int8)).items() if v}
+
+    want = {"train_clips_per_sec_per_chip_4f": per_forward(TRAIN_T, False),
+            "train_clips_per_sec_per_chip_4f_int8_backbone": per_forward(TRAIN_T, True),
+            "clips_per_sec_e2e_16f_eval_bf16": per_forward(SERVE_T, False),
+            "clips_per_sec_per_chip_16f_eval_int8": per_forward(SERVE_T, True),
+            "clips_per_sec_per_chip_16f_eval": per_forward(SERVE_T, False)}
+    metrics = [ln.get("metric") for ln in lines]
+    bad = [m for m in metrics if str(m).endswith(("_error", "_skipped"))]
+    mfu_bad = [ln["metric"] for ln in lines if "mfu" in ln and not (ln["mfu"] is not None and 0 < ln["mfu"] <= 1.05)]
+    launch_bad = [m for ln in lines if (m := ln.get("metric")) in want and ln.get("launches") != want[m]]
+    say("bench", card=card, rc=proc.returncode, seconds=seconds, stages=metrics, errors=bad, mfu_out_of_range=mfu_bad,
+        launches_off=launch_bad, headline=lines[-1] if lines else None)
+    if proc.returncode != 0 or bad or metrics != list(BENCH_STAGES) or mfu_bad or launch_bad \
+            or not lines[-1].get("value", 0) > 0:
+        raise AssertionError(f"bench: rc {proc.returncode}, stages {metrics}, errors {bad}, mfu out of range "
+                             f"{mfu_bad}, launches off {launch_bad} (bench line); stderr tail: {proc.stderr[-2000:]}")
+    total = dict.fromkeys(counters(), 0)
+    for ln in lines:
+        for k, v in ln.get("launches_total", {}).items():
+            total[k] += v
+    return total
 
 
 def phase_eval(card, device="cuda", backbone="timesformer_large") -> dict:
@@ -3396,7 +3515,7 @@ def phase_eval(card, device="cuda", backbone="timesformer_large") -> dict:
             launches.append(phase(card, ckpts, root=root, device=device, backbone=backbone))
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    return {k: sum(r[k] for r in launches) for k in _counters()}
+    return {k: sum(r[k] for r in launches) for k in counters()}
 
 
 def main():
@@ -3409,14 +3528,18 @@ def main():
     import torch
 
     from helping_hand_for_egocentric_videos_torch.train import EvalModel
+    from helping_hand_for_egocentric_videos_torch.utils.flops import peaks_for
 
-    peaks = PEAKS["pcie" if "pcie" in name.lower() else "sxm"]
+    peaks = peaks_for(name)
     phase_build()
     report = phase_kernels("cuda", peaks)
     local = _time_local_heads("cuda", peaks)  # the model axis's K1/K2 shapes
     for row in local:
         report[row["mode"]].setdefault("local_heads", []).append(row)
     report.update(phase_int8_kernels("cuda", peaks))
+    for check in _check_bench_shapes("cuda"):  # the shapes of phase 27's forwards
+        key = check["kernel"].removeprefix("divided_attention_")
+        report[key if key in report else check["kernel"]].setdefault("bench_shapes", []).append(check)
     for key, cells in _time_train_shapes("cuda", peaks).items():  # before the phases that spoil traces
         report[key].update({"train_shape": cells["train"], "loop_shape": cells["train-loop"]})
     phase_profiler_check("after phase 4")
@@ -3452,13 +3575,16 @@ def main():
     shutil.rmtree(loop_root, ignore_errors=True)
     phase_doctor(card)
     phase_profiler_check("end")
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches_bench = phase_bench(card)
     # launches on the main path: the serving runs at 16 and at 128 frames, bf16
     # and int8, the eval CLIs and visualize, the train steps, the training loops,
-    # both ranks of the split backbone's steps and loop, and the loop on the CLIP
-    # bootstrap
+    # both ranks of the split backbone's steps and loop, the loop on the CLIP
+    # bootstrap, and the bench's stages
     total = {k: launches[k] + launches8[k] + launches_long[k] + launches_eval[k] + launches_train[k]
              + launches_loop[k] + launches_loop8[k] + launches_dist[k] + launches_tp[k] + launches_boot[k]
-             for k in _counters()}
+             + launches_bench[k] for k in counters()}
     counts = {
         "space": total["divided_attention_space"], "time": total["divided_attention_time"],
         "space_int8": total["divided_attention_space_int8"], "time_int8": total["divided_attention_time_int8"],

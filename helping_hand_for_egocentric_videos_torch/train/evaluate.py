@@ -127,20 +127,29 @@ class EvalModel:
         (k*B, E) and (k*B, Q, 4), crop-major, under 'crops<k>'."""
         with torch.inference_mode():
             v = torch.as_tensor(np.asarray(video_u8), device=self.device)
-            if self.preprocess == "resize":
-                video = resize_normalize(v, self.input_res)
-            elif self.preprocess.startswith("crops"):
-                video = spatial_crops(v, crop=self.input_res, num_crops=int(self.preprocess[5:]),
-                                      short=self.input_res)
-                video = video.reshape((-1,) + video.shape[2:])
-            else:
-                video = shortside_centercrop_normalize(v, res=self.input_res)
+            emb, boxes = self.embed_clips(self.preprocess_video(v))
+            return emb.cpu().numpy(), boxes.cpu().numpy()
+
+    def preprocess_video(self, v: torch.Tensor) -> torch.Tensor:
+        """(B, T, H, W, C) uint8 on the device -> the tower's normalised
+        f32 clips, (k*B, ...) crop-major under 'crops<k>'."""
+        if self.preprocess == "resize":
+            return resize_normalize(v, self.input_res)
+        if self.preprocess.startswith("crops"):
+            video = spatial_crops(v, crop=self.input_res, num_crops=int(self.preprocess[5:]), short=self.input_res)
+            return video.reshape((-1,) + video.shape[2:])
+        return shortside_centercrop_normalize(v, res=self.input_res)
+
+    def embed_clips(self, video: torch.Tensor):
+        """(B, T, H, W, C) normalised clips on the device -> ((B, E) f32
+        embeddings, (B, Q, 4) predicted boxes), on the device: the tower,
+        the decoder over its patch grid, ``obj_proj`` of the last query."""
+        with torch.inference_mode():
             _, fmap = spacetime_forward(self.visual, self.lavila_cfg.visual, video, dtype=self.dtype, mp=self.mp)
             b, t = video.shape[:2]
             grid = fmap[:, 1:, :].reshape(b, t, self.lavila_cfg.visual.patches_per_frame, -1)
             out = decoder_forward(self.decoder, self.dec_cfg, grid)
-            emb = obj_proj(self.decoder, out.hs[-1])[:, -1]
-            return emb.cpu().numpy(), out.pred_boxes.cpu().numpy()
+            return obj_proj(self.decoder, out.hs[-1])[:, -1], out.pred_boxes
 
 
 def _cos(a, b) -> np.ndarray:

@@ -13,9 +13,27 @@ Counting rules:
   qkv+proj for the temporal and the spatial pass, spatial scores within
   each frame over n patches, temporal scores across T frames per patch;
 - layernorms, softmax, activations: not counted (sub-1% at these dims).
+
+``PEAKS`` holds the card's dense peaks, the denominators of every mfu and
+roofline bound the port's scripts print; ``peaks_for`` picks its column
+from the device's name.
 """
 
 from __future__ import annotations
+
+# Dense peaks of one NVIDIA H100 from NVIDIA's data sheets (no sparsity, at
+# the full power limit): memory bytes/s and operations/s by type.
+PEAKS = {
+    "sxm": {"bytes": 3.35e12, "bfloat16": 989e12, "float32": 67e12, "int8": 1979e12},
+    "pcie": {"bytes": 2.0e12, "bfloat16": 756e12, "float32": 51e12, "int8": 1513e12},
+}
+
+
+def peaks_for(device_name: str) -> dict:
+    """The column of ``PEAKS`` for a card's name
+    (``torch.cuda.get_device_name``): the PCIe part where the name says
+    PCIe, else the SXM part."""
+    return PEAKS["pcie" if "pcie" in device_name.lower() else "sxm"]
 
 
 def vision_fwd_flops(cfg, frames: int | None = None) -> float:

@@ -26,22 +26,36 @@ _DEVICE = ("kernel", "gpu_memcpy", "gpu_memset")
 _HOST = ("cpu_op", "cuda_runtime", "cuda_driver")
 
 
+# Idle host time that opens and closes a traced window. Late in a long
+# process a window that opened on the first call lost device events at its
+# edges (7 of 20 kernels kept: PERF.md section 6, C2); these margins keep
+# them all.
+TRACE_MARGIN_S = 0.25
+
+
 @contextlib.contextmanager
 def trace(log_dir: str, device="cuda"):
-    """Trace the body; on exit, wait for ``device`` and write
-    ``log_dir/trace.json``."""
+    """Trace the body and write ``log_dir/trace.json``. ``device`` is
+    waited for before the window opens and before it closes, and
+    ``TRACE_MARGIN_S`` seconds of idle host time lie between each edge and
+    the body, so that every device event of the body falls inside the
+    window."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     device = torch.device(device)
+    cuda = device.type == "cuda"
     activities = [ProfilerActivity.CPU]
-    if device.type == "cuda":
+    if cuda:
         activities.append(ProfilerActivity.CUDA)
+        torch.cuda.synchronize(device)
     os.makedirs(log_dir, exist_ok=True)
     with profile(activities=activities) as prof:
+        time.sleep(TRACE_MARGIN_S)
         yield prof
-        if device.type == "cuda":
+        if cuda:
             torch.cuda.synchronize(device)
+        time.sleep(TRACE_MARGIN_S)
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 

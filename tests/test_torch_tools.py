@@ -223,6 +223,22 @@ def test_top_ops_on_a_cpu_trace(tmp_path):
     assert "aten::mm" in names and "aten::relu" in names
 
 
+def test_trace_keeps_idle_margins_around_the_body(tmp_path):
+    """The window opens and closes on ``TRACE_MARGIN_S`` of idle host time: the
+    profiler's span of it reaches that far beyond the body's first and last
+    operators, and the trace is still written."""
+    a = torch.randn(64, 64)
+    with profiling.trace(str(tmp_path), device="cpu"):
+        torch.relu(a @ a)
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    ops = [e for e in events if e.get("ph") == "X" and e.get("cat") == "cpu_op"]
+    (window,) = [e for e in events if e.get("ph") == "X" and e.get("cat") == "Trace"]
+    assert {"aten::mm", "aten::relu"} <= {e["name"] for e in ops}
+    assert min(e["ts"] for e in ops) - window["ts"] >= profiling.TRACE_MARGIN_S * 1e6
+    assert window["ts"] + window["dur"] - max(e["ts"] + e["dur"] for e in ops) >= profiling.TRACE_MARGIN_S * 1e6
+    assert profiling.top_ops(str(tmp_path), k=100)
+
+
 def test_top_ops_self_time_rule(tmp_path):
     ev = [
         {"ph": "X", "cat": "cpu_op", "name": "outer", "pid": 1, "tid": 1, "ts": 0, "dur": 10},

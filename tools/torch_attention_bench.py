@@ -51,6 +51,7 @@ import chip_smoke  # noqa: E402
 from helping_hand_for_egocentric_videos_torch.ops import act_quant as aq  # noqa: E402
 from helping_hand_for_egocentric_videos_torch.ops import divided_attention as da  # noqa: E402
 from helping_hand_for_egocentric_videos_torch.ops._build import library  # noqa: E402
+from helping_hand_for_egocentric_videos_torch.utils.flops import peaks_for  # noqa: E402
 
 CASES = (  # (kernel, mode, quant_out, head_grid, B, T)
     ("K1", "space", False, None, 8, 16), ("K1", "space", False, None, 2, 128),
@@ -158,7 +159,7 @@ def main():
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    peaks = chip_smoke.PEAKS["pcie" if "pcie" in torch.cuda.get_device_name(0).lower() else "sxm"]
+    peaks = peaks_for(torch.cuda.get_device_name(0))
     bench_attention(args, card, peaks)
     bench_rows(args, card, peaks)
 

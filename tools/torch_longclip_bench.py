@@ -51,8 +51,9 @@ from helping_hand_for_egocentric_videos_torch.models import (  # noqa: E402
     timesformer_large_config,
 )
 from helping_hand_for_egocentric_videos_torch.models.weights import inflate_temporal_embed  # noqa: E402
+from helping_hand_for_egocentric_videos_torch.ops.counts import read_counts, reset_counts  # noqa: E402
 from helping_hand_for_egocentric_videos_torch.train import EvalModel  # noqa: E402
-from helping_hand_for_egocentric_videos_torch.utils.flops import eval_fwd_flops_per_clip  # noqa: E402
+from helping_hand_for_egocentric_videos_torch.utils.flops import eval_fwd_flops_per_clip, peaks_for  # noqa: E402
 
 INIT_T, RES = 4, 224
 
@@ -79,12 +80,12 @@ def bench_t(t: int, batch: int, steps: int, peak_bf16: float) -> dict:
     model = build(t)
     clips = np.random.default_rng(t).integers(0, 256, size=(batch, t, RES, RES, 3), dtype=np.uint8)
     model.embed_video(clips)  # warm: kernel builds, allocator pools
-    chip_smoke.reset_counts()
+    reset_counts()
     t0 = time.perf_counter()
     for _ in range(steps):
         model.embed_video(clips)  # returns host arrays: the device is done
     dt = time.perf_counter() - t0
-    per_forward = {k: v // steps for k, v in chip_smoke.read_counts().items() if v}
+    per_forward = {k: v // steps for k, v in read_counts().items() if v}
     clips_per_s = batch * steps / dt
     flops = eval_fwd_flops_per_clip(model.lavila_cfg, model.dec_cfg, frames=t)
     row = {
@@ -148,8 +149,7 @@ def main():
     print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    name = torch.cuda.get_device_name(0)
-    peaks = chip_smoke.PEAKS["pcie" if "pcie" in name.lower() else "sxm"]
+    peaks = peaks_for(torch.cuda.get_device_name(0))
     kernel_rows = time_kernels([(args.batch, t) for t in args.frames] + [(8, 16)], peaks)
     rows = []
     for t in args.frames:
