@@ -33,6 +33,7 @@ from typing import Callable, Iterable
 
 import numpy as np
 
+from ..utils.profiling import span
 from .egoclip import STOPWORD_NOUN_IDS
 
 __all__ = [
@@ -147,6 +148,10 @@ class PrefetchLoader:
             finally:
                 _put(stop)
 
+        def _item(i):
+            with span("hh.data.item"):
+                return self.dataset[int(i)]
+
         def _produce_batches():
             from concurrent.futures import ThreadPoolExecutor
 
@@ -159,11 +164,9 @@ class PrefetchLoader:
                     if cancelled.is_set():
                         return
                     if pool is not None:
-                        items = list(
-                            pool.map(lambda di: self.dataset[int(di)], batch_idx)
-                        )
+                        items = list(pool.map(_item, batch_idx))
                     else:
-                        items = [self.dataset[int(di)] for di in batch_idx]
+                        items = [_item(di) for di in batch_idx]
                     batch = collate(items)
                     if self.transform is not None:
                         batch = self.transform(batch)

@@ -53,10 +53,11 @@ class ServeConfig:
 class _Pending:
     """One submitted request: items + a slot the dispatcher fills."""
 
-    __slots__ = ("items", "done", "result", "error")
+    __slots__ = ("items", "t_submit", "done", "result", "error")
 
     def __init__(self, items):
         self.items = items
+        self.t_submit = time.perf_counter()
         self.done = threading.Event()
         self.result = None
         self.error = None
@@ -64,10 +65,18 @@ class _Pending:
 
 @dataclass
 class _Stats:
+    """One modality's counts. ``queue_wait_s``: the summed time from each
+    request's submission to the dispatcher taking it off the queue
+    (``queue_wait_max_s`` the longest); ``device_s``: the time spent in the
+    model's device calls, each ending with its results on the host."""
+
     requests: int = 0
     items: int = 0
     device_calls: int = 0
     padded_items: int = 0
+    queue_wait_s: float = 0.0
+    queue_wait_max_s: float = 0.0
+    device_s: float = 0.0
     lock: threading.Lock = field(default_factory=threading.Lock)
 
     def snapshot(self) -> dict:
@@ -77,6 +86,9 @@ class _Stats:
                 "items": self.items,
                 "device_calls": self.device_calls,
                 "padded_items": self.padded_items,
+                "queue_wait_s": self.queue_wait_s,
+                "queue_wait_max_s": self.queue_wait_max_s,
+                "device_s": self.device_s,
             }
 
 
@@ -227,6 +239,12 @@ class ServingEngine:
                         batch.append(q.pop(0))
                         n = len(batch[0].items)
                 if batch:
+                    now = time.perf_counter()
+                    st = self.stats[kind]
+                    with st.lock:
+                        for r in batch:
+                            st.queue_wait_s += now - r.t_submit
+                            st.queue_wait_max_s = max(st.queue_wait_max_s, now - r.t_submit)
                     self._run(kind, batch, n)
 
     def _run(self, kind: str, batch: list, n: int):
@@ -238,6 +256,7 @@ class ServingEngine:
             step = self.buckets[-1]
             calls = 0
             padded = 0
+            device_s = 0.0
             for lo in range(0, len(items), step):
                 part = items[lo : lo + step]
                 b = self._bucket(len(part))
@@ -247,6 +266,7 @@ class ServingEngine:
                         [part, np.repeat(part[-1:], pad, axis=0)]
                     )
                 keep = b - pad
+                t0 = time.perf_counter()
                 if kind == "text":
                     outs.append((self.model.embed_tokens(part)[:keep],))
                 else:
@@ -256,12 +276,14 @@ class ServingEngine:
                     # rows-per-clip factor, not the clip count
                     f = boxes.shape[0] // b
                     outs.append((emb[:keep], boxes[: keep * f]))
+                device_s += time.perf_counter() - t0
                 calls += 1
                 padded += pad
             st = self.stats[kind]
             with st.lock:
                 st.device_calls += calls
                 st.padded_items += padded
+                st.device_s += device_s
             parts = [np.concatenate([o[i] for o in outs]) for i in range(len(outs[0]))]
             # per-request split: each output's rows-per-item factor (1
             # for embeddings; T for the per-frame pred_boxes)

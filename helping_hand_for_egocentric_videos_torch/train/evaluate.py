@@ -24,6 +24,9 @@ CUDA kernel; the text tower and the decoder run in f32 on the tower's
 f32 output. ``int8=True`` quantizes the visual tower's block matmuls
 (``models/quant.py``; the int8 kernels K3, K4 and K5 on its patch
 stream), with the per-block float fallback above ``int8_fallback``.
+Under a torch profiler the preprocess, the tower and the decoder are the
+spans ``hh.eval.*`` (``utils/profiling.py::span``), each also timed on
+the device.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ from ..models.obj_decoder import DecoderConfig, ObjDecoder, decoder_forward, obj
 from ..models.quant import cast_floats, quantize_lavila_params
 from ..models.spacetime_vit import spacetime_forward
 from ..ops.preprocess import resize_normalize, shortside_centercrop_normalize, spatial_crops
+from ..utils.profiling import span
 
 __all__ = ["EvalModel", "run_egomcq", "run_epic_mir", "run_egtea"]
 
@@ -133,23 +137,27 @@ class EvalModel:
     def preprocess_video(self, v: torch.Tensor) -> torch.Tensor:
         """(B, T, H, W, C) uint8 on the device -> the tower's normalised
         f32 clips, (k*B, ...) crop-major under 'crops<k>'."""
-        if self.preprocess == "resize":
-            return resize_normalize(v, self.input_res)
-        if self.preprocess.startswith("crops"):
-            video = spatial_crops(v, crop=self.input_res, num_crops=int(self.preprocess[5:]), short=self.input_res)
-            return video.reshape((-1,) + video.shape[2:])
-        return shortside_centercrop_normalize(v, res=self.input_res)
+        with span("hh.eval.preprocess", self.device):
+            if self.preprocess == "resize":
+                return resize_normalize(v, self.input_res)
+            if self.preprocess.startswith("crops"):
+                video = spatial_crops(v, crop=self.input_res, num_crops=int(self.preprocess[5:]),
+                                      short=self.input_res)
+                return video.reshape((-1,) + video.shape[2:])
+            return shortside_centercrop_normalize(v, res=self.input_res)
 
     def embed_clips(self, video: torch.Tensor):
         """(B, T, H, W, C) normalised clips on the device -> ((B, E) f32
         embeddings, (B, Q, 4) predicted boxes), on the device: the tower,
         the decoder over its patch grid, ``obj_proj`` of the last query."""
         with torch.inference_mode():
-            _, fmap = spacetime_forward(self.visual, self.lavila_cfg.visual, video, dtype=self.dtype, mp=self.mp)
-            b, t = video.shape[:2]
-            grid = fmap[:, 1:, :].reshape(b, t, self.lavila_cfg.visual.patches_per_frame, -1)
-            out = decoder_forward(self.decoder, self.dec_cfg, grid)
-            return obj_proj(self.decoder, out.hs[-1])[:, -1], out.pred_boxes
+            with span("hh.eval.tower", self.device):
+                _, fmap = spacetime_forward(self.visual, self.lavila_cfg.visual, video, dtype=self.dtype, mp=self.mp)
+                b, t = video.shape[:2]
+                grid = fmap[:, 1:, :].reshape(b, t, self.lavila_cfg.visual.patches_per_frame, -1)
+            with span("hh.eval.decoder", self.device):
+                out = decoder_forward(self.decoder, self.dec_cfg, grid)
+                return obj_proj(self.decoder, out.hs[-1])[:, -1], out.pred_boxes
 
 
 def _cos(a, b) -> np.ndarray:

@@ -14,7 +14,9 @@ One step of the reference's training iteration:
 
 Nothing in the step waits for the device: the matchings run as tensor
 operations, the augmentation draws on the device, and every metric stays
-a device tensor until the caller reads it.
+a device tensor until the caller reads it. Under a torch profiler the
+towers, the decoder, the losses, the backward and the optimizer are the
+ranges ``hh.step.*`` (``utils/profiling.py::span``).
 
 With a ``parallel.DataParallel`` (``dist``), each rank runs the step on
 its rows of the global batch: EgoNCE on the all-gathered embeddings, the
@@ -47,6 +49,7 @@ from ..metrics.sim import compute_tv_accuracy, sim_matrix
 from ..models.lavila import lavila_forward
 from ..models.obj_decoder import DecoderConfig, ObjDecoder, decoder_forward, obj_proj, txt_proj
 from ..ops.preprocess import apply_augment, augment_rows, resize_normalize, sample_augment_params, transform_boxes
+from ..utils.profiling import span
 
 __all__ = [
     "TrainConfig",
@@ -197,59 +200,60 @@ def pretrain_loss_and_metrics(decoder: ObjDecoder, dec_cfg: DecoderConfig, cfg: 
     one-process gradient; the metrics are the global batch's.
     """
     n_videos, t = video_grid.shape[:2]
-    out = decoder_forward(decoder, dec_cfg, video_grid, generator=generator, deterministic=generator is None)
+    with span("hh.step.decoder"):
+        out = decoder_forward(decoder, dec_cfg, video_grid, generator=generator, deterministic=generator is None)
+        eot = tokens.argmax(dim=-1)
+        rows = torch.arange(tokens.shape[0], device=tokens.device)
+        text_embeds = txt_proj(decoder, text_fmap[rows, eot])
+        last = obj_proj(decoder, out.hs[-1])
+        video_embeds = last[:, -1]
+        noun_embeds = txt_proj(decoder, noun_dict_embeds)
+    with span("hh.step.losses"):
+        count_sum = None if dist is None else dist.sum
+        if dist is not None:  # EgoNCE over the global batch
+            text_embeds, video_embeds = dist.gather(text_embeds), dist.gather(video_embeds)
+            tokens, verb_vec, noun_vec = (dist.gather_const(x) for x in (tokens, verb_vec, noun_vec))
+        n_global = video_embeds.shape[0]
 
-    eot = tokens.argmax(dim=-1)
-    rows = torch.arange(tokens.shape[0], device=tokens.device)
-    text_embeds = txt_proj(decoder, text_fmap[rows, eot])
-    last = obj_proj(decoder, out.hs[-1])
-    video_embeds = last[:, -1]
-    count_sum = None if dist is None else dist.sum
-    if dist is not None:  # EgoNCE over the global batch
-        text_embeds, video_embeds = dist.gather(text_embeds), dist.gather(video_embeds)
-        tokens, verb_vec, noun_vec = (dist.gather_const(x) for x in (tokens, verb_vec, noun_vec))
-    n_global = video_embeds.shape[0]
+        # EgoNCE over the batch
+        sim = sim_matrix(text_embeds, video_embeds)  # (N_v*R, N_v)
+        sim_v = sim_matrix(verb_vec, verb_vec)
+        sim_n = sim_matrix(noun_vec, noun_vec)
+        pad_rows = ((tokens != 0).sum(-1) != 2).float()
+        nce_loss, _ = egonce_multi_positive_loss(sim, sim_v, sim_n, pad_rows, temperature=cfg.temperature)
 
-    # EgoNCE over the batch
-    sim = sim_matrix(text_embeds, video_embeds)  # (N_v*R, N_v)
-    sim_v = sim_matrix(verb_vec, verb_vec)
-    sim_n = sim_matrix(noun_vec, noun_vec)
-    pad_rows = ((tokens != 0).sum(-1) != 2).float()
-    nce_loss, _ = egonce_multi_positive_loss(sim, sim_v, sim_n, pad_rows, temperature=cfg.temperature)
+        # box losses on per-frame predictions
+        hand = boxes[:, :, :2, :].reshape(n_videos * t, 2, 4)
+        obj = boxes[:, :, 2:, :].reshape(n_videos * t, -1, 4)
+        kw = {"num_queries": cfg.num_queries, "resize": cfg.resize, "count_sum": count_sum}
+        loss_hand, _ = compute_box_loss("hand_boxes", out.pred_boxes, hand, **kw)
+        loss_obj, _ = compute_box_loss("obj_boxes", out.pred_boxes, obj, **kw)
+        box_loss = loss_hand + loss_obj
 
-    # box losses on per-frame predictions
-    hand = boxes[:, :, :2, :].reshape(n_videos * t, 2, 4)
-    obj = boxes[:, :, 2:, :].reshape(n_videos * t, -1, 4)
-    kw = {"num_queries": cfg.num_queries, "resize": cfg.resize, "count_sum": count_sum}
-    loss_hand, _ = compute_box_loss("hand_boxes", out.pred_boxes, hand, **kw)
-    loss_obj, _ = compute_box_loss("obj_boxes", out.pred_boxes, obj, **kw)
-    box_loss = loss_hand + loss_obj
+        # word contrastive
+        word_loss = word_contrastive_loss(noun_embeds, last[:, :-1], noun_gt_inds, temperature=cfg.temperature,
+                                          count_sum=count_sum)
 
-    # word contrastive
-    noun_embeds = txt_proj(decoder, noun_dict_embeds)
-    word_loss = word_contrastive_loss(noun_embeds, last[:, :-1], noun_gt_inds, temperature=cfg.temperature,
-                                      count_sum=count_sum)
+        local = box_loss + cfg.word_loss_weight * word_loss
+        if dist is None:
+            objective = nce_loss + local
+        else:
+            objective = nce_loss + dist.world * local
+            box_loss, word_loss = dist.sum(box_loss), dist.sum(word_loss)
+        total = nce_loss + box_loss + cfg.word_loss_weight * word_loss
 
-    local = box_loss + cfg.word_loss_weight * word_loss
-    if dist is None:
-        objective = nce_loss + local
-    else:
-        objective = nce_loss + dist.world * local
-        box_loss, word_loss = dist.sum(box_loss), dist.sum(word_loss)
-    total = nce_loss + box_loss + cfg.word_loss_weight * word_loss
-
-    with torch.no_grad():  # train-time accuracy on the primary captions
-        r = cfg.rephrase_factor
-        sim_primary = sim.reshape(n_global, r, n_global)[:, 0, :]
-        acc_vt, acc_tv = compute_tv_accuracy(sim_primary, text_embeds, sim_v, sim_n, n_global, rephrase_factor=r)
-    metrics = {
-        "total_loss": total.detach(),
-        "nce_loss": nce_loss.detach(),
-        "box_loss": box_loss.detach(),
-        "word_loss": word_loss.detach(),
-        "top1_video_to_text": acc_vt,
-        "top1_text_to_video": acc_tv,
-    }
+        with torch.no_grad():  # train-time accuracy on the primary captions
+            r = cfg.rephrase_factor
+            sim_primary = sim.reshape(n_global, r, n_global)[:, 0, :]
+            acc_vt, acc_tv = compute_tv_accuracy(sim_primary, text_embeds, sim_v, sim_n, n_global, rephrase_factor=r)
+        metrics = {
+            "total_loss": total.detach(),
+            "nce_loss": nce_loss.detach(),
+            "box_loss": box_loss.detach(),
+            "word_loss": word_loss.detach(),
+            "top1_video_to_text": acc_vt,
+            "top1_text_to_video": acc_tv,
+        }
     return objective, metrics
 
 
@@ -316,8 +320,9 @@ def make_train_step(dec_cfg: DecoderConfig, lavila_cfg, cfg: TrainConfig, *, dis
             video, boxes = augment_batch(cfg, video, boxes, gen, dist)
         elif video.dtype == torch.uint8:  # device-side preprocess
             video = resize_normalize(video, cfg.input_res)
-        video_grid, text_fmap = backbone_features(backbone, lavila_cfg, video, b["tokens"],
-                                                  dtype=cfg.backbone_dtype, mp=mp)
+        with span("hh.step.backbone"):
+            video_grid, text_fmap = backbone_features(backbone, lavila_cfg, video, b["tokens"],
+                                                      dtype=cfg.backbone_dtype, mp=mp)
 
         optimizer.zero_grad(set_to_none=True)
         loss, metrics = pretrain_loss_and_metrics(
@@ -325,22 +330,24 @@ def make_train_step(dec_cfg: DecoderConfig, lavila_cfg, cfg: TrainConfig, *, dis
             b["verb_vec"], boxes, b["nouns"], torch.as_tensor(noun_dict_embeds, device=dev),
             generator=generator, dist=dist,
         )
-        loss.backward()
-        if dist is not None:
-            dist.average_grads(decoder.parameters())
-        if mp is not None:
-            mp.average_grads(decoder.parameters())
-        grads = [p.grad for p in decoder.parameters() if p.grad is not None]
-        metrics["grad_norm"] = _global_norm(grads)
-        if cfg.clip_grad > 0:  # optax's clip_by_global_norm over the trained parameters
-            trained = [p.grad for g in optimizer.param_groups for p in g["params"] if p.grad is not None]
-            norm = _global_norm(trained)
-            for g in trained:
-                g.copy_(torch.where(norm < cfg.clip_grad, g, g / norm * cfg.clip_grad))
-        lr = state.schedule(state.step)
-        for group in optimizer.param_groups:
-            group["lr"] = lr
-        optimizer.step()
+        with span("hh.step.backward"):
+            loss.backward()
+        with span("hh.step.optim"):
+            if dist is not None:
+                dist.average_grads(decoder.parameters())
+            if mp is not None:
+                mp.average_grads(decoder.parameters())
+            grads = [p.grad for p in decoder.parameters() if p.grad is not None]
+            metrics["grad_norm"] = _global_norm(grads)
+            if cfg.clip_grad > 0:  # optax's clip_by_global_norm over the trained parameters
+                trained = [p.grad for g in optimizer.param_groups for p in g["params"] if p.grad is not None]
+                norm = _global_norm(trained)
+                for g in trained:
+                    g.copy_(torch.where(norm < cfg.clip_grad, g, g / norm * cfg.clip_grad))
+            lr = state.schedule(state.step)
+            for group in optimizer.param_groups:
+                group["lr"] = lr
+            optimizer.step()
         return state._replace(step=state.step + 1), metrics
 
     return step

@@ -1,13 +1,24 @@
-"""Profiling: a device trace of a stretch of the training loop, its op
-table, and a steps-per-second meter.
+"""Profiling: a device trace of a stretch of the program, its op table,
+and the program's own spans.
 
 Counterpart of ``helping_hand_for_egocentric_videos_tpu/utils/profiling.py``
 on ``torch.profiler``. ``trace`` records the host and, on a CUDA device,
 the kernels, written as a Chrome trace (``trace.json``, viewable in
-Perfetto or chrome://tracing) into ``log_dir``; ``top_ops`` reads that
-file back into a (self time, host or device, name) table, headless, as
-the JAX package's ``top_ops`` reads its xprof capture; ``StepTimer`` is
-the reference's steps/s meter (run/train.py:219).
+Perfetto or chrome://tracing) into ``log_dir``, with the spans' table
+beside it (``spans.json``); ``top_ops`` reads the trace back into a (self
+time, host or device, name) table, headless, as the JAX package's
+``top_ops`` reads its xprof capture.
+
+``span(name, device)`` marks one of the program's layers where its work
+happens (the names and their layers: ``SPANS``). With no torch profiler
+running it is one shared null context: no range, no clock read. Under a
+profiler it opens a ``record_function`` range, which the Chrome trace
+shows on the kernels' clock when it runs on the profiler's thread (ranges
+on other threads are dropped by the profiler), and adds its count and
+host seconds, and on a CUDA ``device`` the time between a pair of CUDA
+events on the current stream, to a table that works on any thread.
+``spans()`` reads that table for the latest profiler session. The table
+is the process's, as the profiler it follows is.
 """
 
 from __future__ import annotations
@@ -15,10 +26,111 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import threading
 import time
 from collections import defaultdict
 
-__all__ = ["trace", "top_ops", "StepTimer"]
+import torch
+from torch.autograd import profiler as _autograd_profiler
+from torch.autograd.profiler import record_function
+
+__all__ = ["SPANS", "span", "spans", "trace", "top_ops"]
+
+# Every span's name and the layer it marks. The step's five phases and the
+# eval forward's three run on the caller's thread, so a trace taken there
+# holds their ranges; ``hh.data.item`` runs in the loader's decode threads,
+# where only its count and host seconds are kept.
+SPANS = {
+    "hh.step.backbone": "models/lavila.py (the frozen visual and text towers)",
+    "hh.step.decoder": "models/obj_decoder.py (decoder_forward, txt_proj, obj_proj)",
+    "hh.step.losses": "losses/ and ops/lap.py (EgoNCE, the box matchings, the word loss)",
+    "hh.step.backward": "autograd (the step's backward)",
+    "hh.step.optim": "train/step.py (gradient averaging, global norm, clip, AdamW)",
+    "hh.eval.preprocess": "ops/preprocess.py (resize_normalize, crops)",
+    "hh.eval.tower": "models/spacetime_vit.py (the visual tower)",
+    "hh.eval.decoder": "models/obj_decoder.py (decoder_forward, txt_proj, obj_proj)",
+    "hh.data.item": "data/ (PrefetchLoader, read_clip_chunked, pinned_put)",
+}
+
+_NULL = contextlib.nullcontext()
+_lock = threading.Lock()
+_table: dict = {}  # name -> {"count", "host_s", "kind", "device_s", "events"}
+# set by every span with no profiler running; the first span that records
+# under a profiler clears the previous session's table and resets it
+_new_session = True
+
+
+def span(name: str, device=None):
+    """A context manager around one layer's work (module docstring).
+    ``device``: where the work runs; on a CUDA device the span also times
+    the current stream with a pair of CUDA events. The body's results are
+    the same with and without a profiler."""
+    global _new_session
+    if not _autograd_profiler._is_profiler_enabled:
+        _new_session = True
+        return _NULL
+    return _Span(name, device)
+
+
+class _Span:
+    __slots__ = ("name", "kind", "stream", "range", "start", "t0")
+
+    def __init__(self, name: str, device):
+        self.name = name
+        dev = None if device is None else torch.device(device)
+        self.kind = None if dev is None else dev.type
+        self.stream = torch.cuda.current_stream(dev) if self.kind == "cuda" else None
+
+    def __enter__(self):
+        global _new_session
+        with _lock:
+            if _new_session:
+                _table.clear()
+                _new_session = False
+        self.range = record_function(self.name)
+        self.range.__enter__()
+        if self.stream is not None:
+            self.start = torch.cuda.Event(enable_timing=True)
+            self.start.record(self.stream)
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        host_s = time.perf_counter() - self.t0
+        pair = None
+        if self.stream is not None:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record(self.stream)
+            pair = (self.start, end)
+        self.range.__exit__(*exc)
+        with _lock:
+            e = _table.setdefault(self.name, {"count": 0, "host_s": 0.0, "kind": self.kind, "device_s": 0.0,
+                                              "events": []})
+            e["count"] += 1
+            e["host_s"] += host_s
+            if pair is not None:
+                e["events"].append(pair)
+        return False
+
+
+def spans() -> dict:
+    """{name: {"count", "host_s", "device_s"}} of the spans that ran in the
+    latest profiler session: from the first span that recorded after a
+    span ran with no profiler, that is after the program ran untraced.
+    ``device_s``: on a CUDA device the summed time between each span's
+    pair of CUDA events (this waits for them), on the CPU the host
+    seconds, and None for a span given no device."""
+    out = {}
+    with _lock:
+        for name, e in _table.items():
+            for start, end in e["events"]:
+                end.synchronize()
+                e["device_s"] += start.elapsed_time(end) / 1e3
+            e["events"].clear()
+            device_s = {"cuda": e["device_s"], None: None}.get(e["kind"], e["host_s"])
+            out[name] = {"count": e["count"], "host_s": e["host_s"], "device_s": device_s}
+    return out
+
 
 # the trace's event categories: kernels and copies on the device; operators
 # and the CUDA API's calls on the host
@@ -35,12 +147,12 @@ TRACE_MARGIN_S = 0.25
 
 @contextlib.contextmanager
 def trace(log_dir: str, device="cuda"):
-    """Trace the body and write ``log_dir/trace.json``. ``device`` is
+    """Trace the body and write ``log_dir/trace.json`` and the spans that
+    ran in it, ``log_dir/spans.json`` (``spans()``). ``device`` is
     waited for before the window opens and before it closes, and
     ``TRACE_MARGIN_S`` seconds of idle host time lie between each edge and
     the body, so that every device event of the body falls inside the
     window."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     device = torch.device(device)
@@ -57,6 +169,8 @@ def trace(log_dir: str, device="cuda"):
             torch.cuda.synchronize(device)
         time.sleep(TRACE_MARGIN_S)
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+    with open(os.path.join(log_dir, "spans.json"), "w") as f:
+        json.dump(spans(), f, indent=1, sort_keys=True)
 
 
 def _self_us(events) -> list[float]:
@@ -95,24 +209,3 @@ def top_ops(log_dir: str, k: int = 15):
         totals[("device" if e["cat"] in _DEVICE else "host", e["name"])] += us
     rows = sorted(((us / 1e3, where, name) for (where, name), us in totals.items()), key=lambda r: -r[0])
     return rows[:k]
-
-
-class StepTimer:
-    """Steps-per-second meter with warmup skip (device/sps parity,
-    run/train.py:219)."""
-
-    def __init__(self, warmup: int = 2):
-        self.warmup = warmup
-        self.count = 0
-        self.start = None
-
-    def tick(self):
-        self.count += 1
-        if self.count == self.warmup:
-            self.start = time.perf_counter()
-
-    @property
-    def steps_per_sec(self) -> float:
-        if self.start is None or self.count <= self.warmup:
-            return 0.0
-        return (self.count - self.warmup) / (time.perf_counter() - self.start)

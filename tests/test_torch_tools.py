@@ -10,10 +10,10 @@
   ``ffmpeg`` (the native pipe: skip-existing, ``--overwrite``, a corrupt
   source leaving no store) and through the cv2 fallback on real mp4s,
   the ``.npy`` stores equal to JAX's bit for bit;
-- ``utils/profiling.py``: ``StepTimer`` beside JAX's on the same clock;
-  ``top_ops`` on a CPU trace of ``trace`` (host operators, self time,
-  descending), on a hand-made trace (self time = duration less the
-  direct children's; device events by name), and without a trace.
+- ``utils/profiling.py``: ``top_ops`` on a CPU trace of ``trace`` (host
+  operators, self time, descending), on a hand-made trace (self time =
+  duration less the direct children's; device events by name), and
+  without a trace.
 """
 
 import json
@@ -29,7 +29,6 @@ from helping_hand_for_egocentric_videos_tpu.cli import doctor as j_doctor
 from helping_hand_for_egocentric_videos_tpu.cli import extract_clips as j_extract
 from helping_hand_for_egocentric_videos_tpu.data import native as j_native
 from helping_hand_for_egocentric_videos_tpu.data import video as j_video
-from helping_hand_for_egocentric_videos_tpu.utils import profiling as j_profiling
 from helping_hand_for_egocentric_videos_torch.cli import doctor, extract_clips
 from helping_hand_for_egocentric_videos_torch.data import native as t_native
 from helping_hand_for_egocentric_videos_torch.data import video as t_video
@@ -192,21 +191,6 @@ def test_extract_clips_fallback_matches_jax(tmp_path, monkeypatch):
 
 
 # -------------------------------------------------------------- profiling
-
-
-def test_step_timer_matches_jax(monkeypatch):
-    now = {"t": 0.0}
-    monkeypatch.setattr(time, "perf_counter", lambda: now["t"])
-    timers = (profiling.StepTimer(warmup=2), j_profiling.StepTimer(warmup=2))
-    readings = []
-    for step in range(5):
-        now["t"] = (9.0, 10.0, 12.5, 13.0, 13.5)[step]
-        for t in timers:
-            t.tick()
-        readings.append([t.steps_per_sec for t in timers])
-    assert readings[0] == readings[1] == [0.0, 0.0]  # within the warmup
-    assert [a == b for a, b in readings] == [True] * 5
-    assert readings[-1][0] == pytest.approx(3 / (now["t"] - 10.0))
 
 
 def test_top_ops_on_a_cpu_trace(tmp_path):
