@@ -5,7 +5,9 @@ Each wrapper adds one to its own attribute where it launches its kernel
 ``act_quant.layer_norm_int8.launches``,
 ``act_quant.quick_gelu_int8.launches``). A measurement sets them all to 0
 just before the work it reads (``reset_counts``) and reads them just after
-(``read_counts``).
+(``read_counts``). A CUDA graph's replay runs the kernels its recording
+saw without calling their wrappers; its owner adds their counts
+(``add_counts``).
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from __future__ import annotations
 from . import act_quant as _aq
 from . import divided_attention as _da
 
-__all__ = ["counters", "read_counts", "reset_counts"]
+__all__ = ["add_counts", "counters", "read_counts", "reset_counts"]
 
 
 def counters() -> dict:
@@ -37,3 +39,9 @@ def reset_counts():
 
 def read_counts() -> dict:
     return {name: getattr(obj, attr) for name, (obj, attr) in counters().items()}
+
+
+def add_counts(counts: dict):
+    """Add ``counts`` (by kernel name; names left out add 0)."""
+    for name, (obj, attr) in counters().items():
+        setattr(obj, attr, getattr(obj, attr) + counts.get(name, 0))

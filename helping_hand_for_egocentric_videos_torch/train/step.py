@@ -50,6 +50,7 @@ from ..models.lavila import lavila_forward
 from ..models.obj_decoder import DecoderConfig, ObjDecoder, decoder_forward, obj_proj, txt_proj
 from ..ops.preprocess import apply_augment, augment_rows, resize_normalize, sample_augment_params, transform_boxes
 from ..utils.profiling import span
+from .backbone_graph import BackboneGraphs
 
 __all__ = [
     "TrainConfig",
@@ -162,19 +163,27 @@ class TrainState(NamedTuple):
         return cls(decoder, *make_optimizer(cfg, decoder), 0)
 
 
-def backbone_features(backbone, lavila_cfg, video, tokens, *, dtype=torch.bfloat16, mp=None):
+def backbone_features(backbone, lavila_cfg, video, tokens, *, dtype=torch.bfloat16, mp=None, graphs=None):
     """The frozen backbone's forward under ``torch.no_grad``: the decoder's
     inputs, with no gradient.
 
     video: (Bv, T, H, W, C) normalised; tokens: (Bt, 77).
     Returns (video_grid (Bv, T, N, C), text_fmap (Bt, 77, Wt)), f32.
     ``mp``: ``backbone`` is this rank's shard (``lavila_forward``).
+    ``graphs``: a ``BackboneGraphs``; on a CUDA device without ``mp`` the
+    forward is then replayed from a CUDA graph, with the same outputs
+    (``train/backbone_graph.py``). The model axis's all-reduces stay eager.
     """
-    with torch.no_grad():
-        out = lavila_forward(backbone, lavila_cfg, video, tokens, dtype=dtype, mp=mp)
-    bv, t = video.shape[:2]
-    grid = out["image_feature_map"][:, 1:, :].reshape(bv, t, lavila_cfg.visual.patches_per_frame, -1)
-    return grid, out["text_feature_map"]
+    def forward(video, tokens):
+        with torch.no_grad():
+            out = lavila_forward(backbone, lavila_cfg, video, tokens, dtype=dtype, mp=mp)
+        bv, t = video.shape[:2]
+        grid = out["image_feature_map"][:, 1:, :].reshape(bv, t, lavila_cfg.visual.patches_per_frame, -1)
+        return grid, out["text_feature_map"]
+
+    if graphs is not None and mp is None and video.is_cuda:
+        return graphs(forward, backbone, video, tokens, lavila_cfg, dtype)
+    return forward(video, tokens)
 
 
 def pretrain_loss_and_metrics(decoder: ObjDecoder, dec_cfg: DecoderConfig, cfg: TrainConfig, video_grid, text_fmap,
@@ -306,7 +315,12 @@ def make_train_step(dec_cfg: DecoderConfig, lavila_cfg, cfg: TrainConfig, *, dis
     the global batch (``pretrain_loss_and_metrics``). ``mp``: a
     ``parallel.ModelParallel``; ``backbone`` is then this rank's shard, and
     ``dist`` spans the data group (module docstring).
+
+    On a CUDA device without ``mp`` the frozen backbone's forward is
+    recorded once a shape into a CUDA graph and replayed in later steps
+    (``backbone_features``'s ``graphs``, one cache a step function).
     """
+    graphs = BackboneGraphs()
 
     def step(state: TrainState, backbone, batch, noun_dict_embeds, generator=None, *, aug_generator=None):
         decoder, optimizer = state.decoder, state.optimizer
@@ -322,7 +336,7 @@ def make_train_step(dec_cfg: DecoderConfig, lavila_cfg, cfg: TrainConfig, *, dis
             video = resize_normalize(video, cfg.input_res)
         with span("hh.step.backbone"):
             video_grid, text_fmap = backbone_features(backbone, lavila_cfg, video, b["tokens"],
-                                                      dtype=cfg.backbone_dtype, mp=mp)
+                                                      dtype=cfg.backbone_dtype, mp=mp, graphs=graphs)
 
         optimizer.zero_grad(set_to_none=True)
         loss, metrics = pretrain_loss_and_metrics(

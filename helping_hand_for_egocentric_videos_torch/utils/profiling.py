@@ -36,12 +36,14 @@ from torch.autograd.profiler import record_function
 
 __all__ = ["SPANS", "span", "spans", "trace", "top_ops"]
 
-# Every span's name and the layer it marks. The step's five phases and the
-# eval forward's three run on the caller's thread, so a trace taken there
-# holds their ranges; ``hh.data.item`` runs in the loader's decode threads,
-# where only its count and host seconds are kept.
+# Every span's name and the layer it marks. The step's five phases (the
+# backbone's graph replay nested in its phase) and the eval forward's three
+# run on the caller's thread, so a trace taken there holds their ranges;
+# ``hh.data.item`` runs in the loader's decode threads, where only its count
+# and host seconds are kept.
 SPANS = {
     "hh.step.backbone": "models/lavila.py (the frozen visual and text towers)",
+    "hh.step.backbone.replay": "train/step.py (the host's launch path: the towers replayed from a CUDA graph)",
     "hh.step.decoder": "models/obj_decoder.py (decoder_forward, txt_proj, obj_proj)",
     "hh.step.losses": "losses/ and ops/lap.py (EgoNCE, the box matchings, the word loss)",
     "hh.step.backward": "autograd (the step's backward)",
