@@ -22,7 +22,7 @@ import os
 from dataclasses import dataclass, field
 from typing import Any
 
-__all__ = ["ExperimentConfig", "apply_overrides"]
+__all__ = ["ExperimentConfig", "NarratorCfg", "apply_overrides"]
 
 
 @dataclass
@@ -83,6 +83,23 @@ class ParallelCfg:
     model_parallel: int = 1
     num_devices: int = 0  # the JAX mesh's device count; 0 = all
     backbone_dtype: str = "bfloat16"  # or "float32"
+
+
+@dataclass
+class NarratorCfg:
+    """LaViLa's narrator (``models/narrator.py``): its model preset, the
+    generation settings of ``demo_narrator.py``, its weights and type. A
+    tree of its own, not a section of ``ExperimentConfig``, whose fields
+    are the JAX package's."""
+
+    model: str = "vclm_openai_timesformer_large_336px_gpt2_xl"  # | vclm_tiny
+    num_return_sequences: int = 10
+    max_text_length: int = 77
+    temperature: float = 0.7
+    top_p: float = 0.95
+    # a state dict in NarratorModel's layout; "" draws seeded random weights
+    weights: str = ""
+    dtype: str = "bfloat16"  # or "float32"
 
 
 @dataclass

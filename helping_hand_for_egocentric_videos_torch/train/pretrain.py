@@ -44,7 +44,7 @@ import numpy as np
 import torch
 
 from ..core.checkpoint import latest_step, restore_checkpoint, save_checkpoint
-from ..core.config import ExperimentConfig
+from ..core.config import ExperimentConfig, NarratorCfg
 from ..data import ClipTokenizer, PrefetchLoader, ShardedSampler, prepare_train_batch
 from ..data.egoclip import EgoClipConfig, EgoClipDataset, load_noun_dict
 from ..data.loader import device_prefetch, pinned_put
@@ -68,7 +68,7 @@ from ..utils.logging import AverageMeter, MetricLogger, ProgressMeter
 from .evaluate import EvalModel, run_egomcq
 from .step import TrainConfig, TrainState, make_train_step
 
-__all__ = ["build_models", "build_train_config", "pretrain"]
+__all__ = ["build_models", "build_narrator", "build_train_config", "pretrain"]
 
 
 def build_models(cfg: ExperimentConfig, rng_seed: int = 0):
@@ -116,6 +116,35 @@ def build_models(cfg: ExperimentConfig, rng_seed: int = 0):
 
         backbone = quantize_lavila_params(backbone)
     return lavila_cfg, backbone, dec_cfg, decoder
+
+
+def build_narrator(ncfg: NarratorCfg, rng_seed: int = 0, device=None):
+    """-> ``models.narrator.NarratorModel`` of the preset ``ncfg.model``, with
+    ``ncfg``'s generation settings, on ``device`` in ``ncfg.dtype``. With
+    ``ncfg.weights`` the state dict of that file, in the model's own layout
+    (its ``state_dict()``), cast tensor by tensor; else seeded random
+    weights. A released narrator checkpoint names its visual tower as
+    LaViLa's TimeSformer and stores ``lm_head`` apart; its conversion waits
+    for the file (PERF.md, section 7)."""
+    from ..models.narrator import NarratorConfig, NarratorModel, narrator_tiny_config
+
+    preset = {"vclm_openai_timesformer_large_336px_gpt2_xl": NarratorConfig,
+              "vclm_tiny": narrator_tiny_config}[ncfg.model]
+    cfg = preset(num_return_sequences=ncfg.num_return_sequences, max_text_length=ncfg.max_text_length,
+                 temperature=ncfg.temperature, top_p=ncfg.top_p)
+    if cfg.max_text_length > cfg.lm.n_positions:
+        raise ValueError(f"max_text_length {cfg.max_text_length} exceeds the model's {cfg.lm.n_positions} positions")
+    device = resolve_device(device)
+    dtype = getattr(torch, ncfg.dtype)
+    if ncfg.weights:
+        sd = load_torch_state_dict(ncfg.weights)
+        for k in list(sd):
+            sd[k] = sd[k].to(dtype)
+        model = NarratorModel(cfg, device="meta")
+        model.load_state_dict(sd, strict=True, assign=True)
+        return model.to(device).eval()
+    gen = torch.Generator(device).manual_seed(rng_seed)
+    return NarratorModel(cfg, generator=gen, device=device).to(dtype).eval()
 
 
 def build_train_config(cfg: ExperimentConfig) -> TrainConfig:

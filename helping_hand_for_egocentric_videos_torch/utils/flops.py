@@ -105,3 +105,40 @@ def train_step_flops_per_clip(lavila_cfg, dec_cfg, rephrase_factor: int = 5) -> 
         + rephrase_factor * text_fwd_flops(lavila_cfg.text)
         + 3.0 * decoder_fwd_flops(dec_cfg)
     )
+
+
+def narrator_pool_flops(cfg) -> float:
+    """LaViLa's attention pooler for one clip (models/narrator.py): the
+    queries' projection, the shared key/value projection of every tower
+    token, the 25 heads' scores and values over them, the output projection."""
+    d, c, m = cfg.lm.n_embd, cfg.visual.width, cfg.num_img_queries
+    s = 1 + cfg.visual.patches_per_frame * cfg.visual.num_frames
+    inner, dh = cfg.pool_heads * cfg.pool_dim_head, cfg.pool_dim_head
+    return float(2 * m * d * inner + 2 * s * c * 2 * dh + 4 * cfg.pool_heads * m * s * dh + 2 * m * inner * d)
+
+
+def narrator_cross_kv_flops(cfg) -> float:
+    """Every cross layer's keys and values of one clip's latents, made once."""
+    d = cfg.lm.n_embd
+    return float(len(cfg.lm.cross_layers) * 2 * cfg.num_img_queries * d * 2 * d)
+
+
+def gpt2_token_flops(lm, keys: int, latents: int) -> float:
+    """One token through the gated GPT-2 (models/gpt2.py): every block's
+    projections and MLP, its self-attention over ``keys`` positions, each
+    cross block's query and output projections and its attention over
+    ``latents`` keys, and ``lm_head``."""
+    d = lm.n_embd
+    per_block = 2 * d * 3 * d + 2 * d * d + 4 * d * lm.n_inner + 4 * keys * d
+    per_cross = 4 * d * d + 4 * latents * d
+    return float(lm.n_layer * per_block + len(lm.cross_layers) * per_cross + 2 * d * lm.vocab_size)
+
+
+def narrator_flops_per_clip(cfg) -> float:
+    """One narrated clip (``NarratorModel.narrate``): the tower, the pooler,
+    the cross keys and values, and R sequences decoded for
+    ``max_text_length - 1`` steps, step ``p`` attending ``p + 1`` positions."""
+    m = cfg.num_img_queries
+    decode = sum(gpt2_token_flops(cfg.lm, p + 1, m) for p in range(cfg.max_text_length - 1))
+    return (vision_fwd_flops(cfg.visual) + narrator_pool_flops(cfg) + narrator_cross_kv_flops(cfg)
+            + cfg.num_return_sequences * decode)

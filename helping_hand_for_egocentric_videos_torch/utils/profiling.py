@@ -19,6 +19,10 @@ host seconds, and on a CUDA ``device`` the time between a pair of CUDA
 events on the current stream, to a table that works on any thread.
 ``spans()`` reads that table for the latest profiler session. The table
 is the process's, as the profiler it follows is.
+
+``count(name, n)`` adds ``n`` to a counter of that table (the names and
+what they count: ``COUNTERS``), under a profiler only; ``spans()`` gives
+its sum as ``count``, with no time.
 """
 
 from __future__ import annotations
@@ -34,13 +38,15 @@ import torch
 from torch.autograd import profiler as _autograd_profiler
 from torch.autograd.profiler import record_function
 
-__all__ = ["SPANS", "span", "spans", "trace", "top_ops"]
+__all__ = ["COUNTERS", "SPANS", "count", "span", "spans", "trace", "top_ops"]
 
 # Every span's name and the layer it marks. The step's five phases (the
-# backbone's graph replay nested in its phase) and the eval forward's three
-# run on the caller's thread, so a trace taken there holds their ranges;
-# ``hh.data.item`` runs in the loader's decode threads, where only its count
-# and host seconds are kept.
+# backbone's graph replay nested in its phase), the eval forward's three and
+# the narrator's run on the caller's thread, so a trace taken there holds
+# their ranges; ``hh.data.item`` runs in the loader's decode threads, where
+# only its count and host seconds are kept. ``hh.narrate.decode.attn`` runs
+# inside ``hh.narrate.decode`` where a step runs eagerly, not where it
+# replays a CUDA graph (``models/gpt2.py::Decoder``).
 SPANS = {
     "hh.step.backbone": "models/lavila.py (the frozen visual and text towers)",
     "hh.step.backbone.replay": "train/step.py (the host's launch path: the towers replayed from a CUDA graph)",
@@ -52,6 +58,19 @@ SPANS = {
     "hh.eval.tower": "models/spacetime_vit.py (the visual tower)",
     "hh.eval.decoder": "models/obj_decoder.py (decoder_forward, txt_proj, obj_proj)",
     "hh.data.item": "data/ (PrefetchLoader, read_clip_chunked, pinned_put)",
+    "hh.narrate.tower": "models/narrator.py (the preprocess and the visual tower at 336 px)",
+    "hh.narrate.prefill": "models/narrator.py (the attention pooler, each cross layer's keys and values)",
+    "hh.narrate.decode": "models/gpt2.py (a decode step's blocks and lm_head)",
+    "hh.narrate.decode.attn": "models/gpt2.py (an eager decode step's self- and cross-attention calls)",
+    "hh.narrate.sample": "ops/sampling.py (temperature, top-p, the draw)",
+}
+
+# Every counter's name and what it counts, summed over a profiler session.
+COUNTERS = {
+    "hh.narrate.decode_steps": "decode steps run (one token of every sequence of a batch)",
+    "hh.narrate.tokens": "tokens drawn",
+    "hh.narrate.self_cache_bytes": "bytes of the self-attention caches allocated, one a narrated batch",
+    "hh.narrate.cross_cache_bytes": "bytes of the cross-attention caches allocated, one a narrated batch",
 }
 
 _NULL = contextlib.nullcontext()
@@ -74,6 +93,27 @@ def span(name: str, device=None):
     return _Span(name, device)
 
 
+def _entry(name: str, kind) -> dict:
+    """``name``'s row of the table (the caller holds ``_lock``), the previous
+    session's table cleared first where a new session began."""
+    global _new_session
+    if _new_session:
+        _table.clear()
+        _new_session = False
+    return _table.setdefault(name, {"count": 0, "host_s": 0.0, "kind": kind, "device_s": 0.0, "events": []})
+
+
+def count(name: str, n: int = 1):
+    """Add ``n`` to the counter ``name`` (``COUNTERS``) under a profiler; with
+    none, nothing but the mark that a session has ended, as ``span``."""
+    global _new_session
+    if not _autograd_profiler._is_profiler_enabled:
+        _new_session = True
+        return
+    with _lock:
+        _entry(name, None)["count"] += int(n)
+
+
 class _Span:
     __slots__ = ("name", "kind", "stream", "range", "start", "t0")
 
@@ -84,11 +124,8 @@ class _Span:
         self.stream = torch.cuda.current_stream(dev) if self.kind == "cuda" else None
 
     def __enter__(self):
-        global _new_session
         with _lock:
-            if _new_session:
-                _table.clear()
-                _new_session = False
+            _entry(self.name, self.kind)
         self.range = record_function(self.name)
         self.range.__enter__()
         if self.stream is not None:
@@ -106,8 +143,7 @@ class _Span:
             pair = (self.start, end)
         self.range.__exit__(*exc)
         with _lock:
-            e = _table.setdefault(self.name, {"count": 0, "host_s": 0.0, "kind": self.kind, "device_s": 0.0,
-                                              "events": []})
+            e = _entry(self.name, self.kind)
             e["count"] += 1
             e["host_s"] += host_s
             if pair is not None:

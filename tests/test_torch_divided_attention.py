@@ -654,3 +654,32 @@ def test_cuda_wrapper_refuses_a_grid_beyond_its_limit(cuda_device):
     out, _ = da.divided_patch_attention(*(z.to(torch.bfloat16) for z in (qkv, ck, cv, cq)), mode="time", heads=1)
     torch.cuda.synchronize()
     assert da.divided_patch_attention.launches_time == before + 1 and torch.isfinite(out.float()).all()
+
+
+# the narrator's tower (models/narrator.py): 336 px clips of 4 frames, N = 576 patches a frame, so
+# space attention runs over 577-row frames; 2 clips, and 16 (a quarter of its 64-clip batch)
+NARRATOR_SHAPES = [(2, 4, 576, 16, 64), (16, 4, 576, 16, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", NARRATOR_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}x{s[2]}")
+@pytest.mark.parametrize("mode", ["space", "time"])
+def test_cuda_kernel_matches_plain_at_the_336px_grid(cuda_device, mode, shape, dtype):
+    """K1 and K2 at the narrator's grid (T = 4, N = 576, H = 16, dh = 64):
+    the patch output at the card's tolerances (f32 1e-4, bf16 2e-2), the
+    merged CLS output at 1e-4, one launch counted."""
+    heads = shape[3]
+    dt = getattr(torch, dtype)
+    qkv, ck, cv, cq = _tiling_inputs(shape, dt, cuda_device, seed=9)
+    attr = f"launches_{mode}"
+    before = getattr(da.divided_patch_attention, attr)
+    out, parts = da.divided_patch_attention(qkv, ck, cv, cq, mode=mode, heads=heads)
+    assert getattr(da.divided_patch_attention, attr) == before + 1
+    cls = da.merge_cls_partials(*parts, cq, ck, cv, heads)
+    want, want_parts = da.divided_patch_attention_ref(qkv, ck, cv, cq, mode=mode, heads=heads)
+    want_cls = da.merge_cls_partials(*want_parts, cq, ck, cv, heads)
+    torch.cuda.synchronize()
+    atol = 1e-4 if dt == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=atol)
+    torch.testing.assert_close(cls, want_cls, rtol=0, atol=1e-4)

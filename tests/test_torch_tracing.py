@@ -345,3 +345,87 @@ def test_every_catalogued_span_is_used_and_named_in_perf_md():
     assert set(profiling.SPANS) == used
     perf = (ROOT / "PERF.md").read_text()
     assert [n for n in profiling.SPANS if f"`{n}`" not in perf] == []
+
+
+# ------------------------------------------------------------ narrator
+
+
+def narrator_model():
+    from helping_hand_for_egocentric_videos_torch.models.narrator import NarratorModel, narrator_tiny_config
+
+    return NarratorModel(narrator_tiny_config(), generator=torch.Generator().manual_seed(0)).eval()
+
+
+def narrator_clips(model, seed=0):
+    v = model.cfg.visual
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(0, 256, (2, v.num_frames, v.img_size, v.img_size, 3), generator=g, dtype=torch.uint8)
+
+
+def test_narrate_spans_nest_and_count_a_step(tmp_path):
+    """One narrated batch: the tower, then the prefill, then each decode
+    step's range (its attention calls inside it) followed by its sampling;
+    the counters count the steps, the tokens and the caches' bytes."""
+    model = narrator_model()
+    video = narrator_clips(model)
+    model.narrate(video, torch.Generator().manual_seed(1))  # untraced: the session before this one ends
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        model.narrate(video, torch.Generator().manual_seed(1))
+    cfg = model.cfg
+    steps, n = cfg.max_text_length - 1, 2 * cfg.num_return_sequences
+    attn_a_step = cfg.lm.n_layer + len(cfg.lm.cross_layers)
+    ev = ranges(prof, tmp_path, "hh.narrate.")
+    top = [e for e in ev if e["name"] != "hh.narrate.decode.attn"]
+    assert [e["name"] for e in top] == ["hh.narrate.tower", "hh.narrate.prefill"] + [
+        "hh.narrate.decode", "hh.narrate.sample"] * steps
+    assert all(a["ts"] + a["dur"] <= b["ts"] for a, b in zip(top, top[1:]))
+    decode = [e for e in top if e["name"] == "hh.narrate.decode"]
+    attn = [e for e in ev if e["name"] == "hh.narrate.decode.attn"]
+    for d in decode:
+        inside = [a for a in attn if d["ts"] <= a["ts"] and a["ts"] + a["dur"] <= d["ts"] + d["dur"]]
+        assert len(inside) == attn_a_step
+    got = profiling.spans()
+    want = {"hh.narrate.tower": 1, "hh.narrate.prefill": 1, "hh.narrate.decode": steps,
+            "hh.narrate.decode.attn": steps * attn_a_step, "hh.narrate.sample": steps,
+            "hh.narrate.decode_steps": steps, "hh.narrate.tokens": steps * n}
+    assert {k: got[k]["count"] for k in want} == want
+    assert all(got[k]["device_s"] == got[k]["host_s"] > 0 for k in want if k in profiling.SPANS)
+    self_bytes, cross_bytes = model.decoder(2, cfg.num_img_queries, "cpu").cache.nbytes
+    assert got["hh.narrate.self_cache_bytes"]["count"] == self_bytes
+    assert got["hh.narrate.cross_cache_bytes"]["count"] == cross_bytes
+    assert got["hh.narrate.tokens"]["device_s"] is None and got["hh.narrate.tokens"]["host_s"] == 0.0
+
+
+def test_narrate_without_profiler_enters_no_record_function(monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) entered with no profiler")
+
+    monkeypatch.setattr(profiling, "record_function", refuse)
+    model = narrator_model()
+    model.narrate(narrator_clips(model), torch.Generator().manual_seed(2))
+
+
+def test_profiler_changes_no_narration():
+    model = narrator_model()
+    video = narrator_clips(model, seed=3)
+    off = model.narrate(video, torch.Generator().manual_seed(4))
+    with profile(activities=[ProfilerActivity.CPU]):
+        on = model.narrate(video, torch.Generator().manual_seed(4))
+    assert profiling.spans()["hh.narrate.tower"]["count"] == 1
+    assert torch.equal(off, on)
+
+
+def _count_literals():
+    for path in sorted(PORT.rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+            if (isinstance(node, ast.Call) and getattr(node.func, "id", getattr(node.func, "attr", None)) == "count"
+                    and node.args and isinstance(node.args[0], ast.Constant) and isinstance(node.args[0].value, str)
+                    and node.args[0].value.startswith("hh.")):
+                yield node.args[0].value
+
+
+def test_every_counter_is_catalogued_used_and_named_in_perf_md():
+    used = set(_count_literals())
+    assert used == set(profiling.COUNTERS) and not used & set(profiling.SPANS)
+    perf = (ROOT / "PERF.md").read_text()
+    assert [n for n in profiling.COUNTERS if f"`{n}`" not in perf] == []
