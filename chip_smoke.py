@@ -61,6 +61,17 @@ failed check raises and the script exits non-zero:
    Then ``torch._int_mm`` at the qkv shape (32768 x 1024 . 1024 x 3072),
    in both operand layouts, beside ``F.linear`` in bf16, as a line of its
    own (the port's int8 matmul is ``torch._int_mm``).
+   Between K5 and the train shapes, the narrator's sampler kernel (K7,
+   ``phase_sampler``) on seeded logits of GPT-2's scale at (640, 50257),
+   peaked and flat, and (640, 97), T 0.7, top-p 0.95: the kept sets
+   parting from the plain version's only where a token's mass above lies
+   within 1e-5 of top-p (sums in another order), 99.9% of the draws in the
+   plain nucleus, 99% of the ids equal to the plain version's on the same
+   seed, a 4-token row's frequencies at n = 20000 within 0.02; then its
+   time (profiler and events) beside the plain version's, the sort route's
+   the port had before it and the bytes' bound, and its registers and
+   spills. ``python3 chip_smoke.py --sampler`` runs phases 1-2 and this
+   alone.
 5. serve: the full-width TimeSformer-L (16 frames) + object decoder from
    seeded random weights behind ``ServingEngine`` and the HTTP server on
    127.0.0.1; text, video, similarity and health requests from several
@@ -437,11 +448,14 @@ def phase_build():
 
     t0 = time.perf_counter()
     res = _build.build_all(verbose=True)
+    ptxas = {}
     for name, r in res.items():
         say("build", source=f"csrc/{name}.cu", seconds=round(r["seconds"], 3))
-        for entry in _ptxas_report(r["log"]):
+        ptxas[name] = _ptxas_report(r["log"])
+        for entry in ptxas[name]:
             say("build-ptxas", source=f"csrc/{name}.cu", **entry)
     say("build", total_seconds=round(time.perf_counter() - t0, 3))
+    return ptxas
 
 
 def _sdpa_inputs(qkv, ck, cv, mode, heads=HEADS):
@@ -1024,6 +1038,122 @@ def phase_int8_kernels(device, peaks):
             info = {"rows": x.shape[0], "D": d, "dtype": str(dtype).removeprefix("torch."), "plan": _ln_plan(x)}
             other_routes.append({**info, **check("layer_norm_int8", got, want, **info)})
     report["layer_norm_int8"]["other_routes"] = other_routes
+    return report
+
+
+# (rows, V, logits): the narrator's 64 clips x 10 sequences over GPT-2's vocabulary, peaked as a trained
+# model's or flat as the benchmark's seeded one's (a nucleus of tens of thousands); the tiny vocabulary
+SAMPLER_SHAPES = ((640, 50257, "peaked"), (640, 50257, "flat"), (640, 97, "peaked"))
+SAMPLER_KERNEL = "nucleus_sample_kernel"
+
+
+def sampler_logits(rows: int, v: int, kind: str, gen, device):
+    """Seeded logits of GPT-2's scale: "peaked", a bulk near -100 with a
+    spread of 3 under a head of 1-64 tokens a row raised by 5-20; "flat",
+    N(0, 1)."""
+    import torch
+
+    if kind == "flat":
+        return torch.randn(rows, v, generator=gen, device=device)
+    x = -100.0 + 3.0 * torch.randn(rows, v, generator=gen, device=device)
+    k = torch.randint(1, 65, (rows, 1), generator=gen, device=device)
+    head = torch.rand(rows, v, generator=gen, device=device).argsort(dim=-1) < k
+    return x + head * (5.0 + 15.0 * torch.rand(rows, v, generator=gen, device=device))
+
+
+def _mass_above(scores):
+    """Each score's softmax mass of the scores strictly greater, in float64:
+    two kept sets may part only where it lies at top_p within rounding."""
+    import torch
+
+    s = scores.double()
+    p = (s - s.amax(-1, keepdim=True)).exp()
+    p = p / p.sum(-1, keepdim=True)
+    sv, order = torch.sort(s, dim=-1, descending=True)
+    ps = p.gather(1, order)
+    cum = ps.cumsum(-1) - ps
+    new = torch.cat([torch.ones_like(sv[:, :1], dtype=torch.bool), sv[:, 1:] != sv[:, :-1]], 1)
+    first = torch.where(new, torch.arange(sv.shape[1]).expand_as(sv), 0).cummax(-1).values
+    return torch.empty_like(cum).scatter_(1, order, cum.gather(1, first))
+
+
+def _parent_sample_next(logits, temperature, top_p, generator):
+    """The sort route the port had before the kernel: ``nucleus_mask``, a
+    second softmax and ``argmax(p / E)``."""
+    import torch
+
+    from helping_hand_for_egocentric_videos_torch.ops import sampling
+
+    scores, drop = sampling.nucleus_mask(logits, temperature, top_p)
+    probs = scores.masked_fill(drop, float("-inf")).softmax(dim=-1)
+    race = torch.empty_like(probs).exponential_(1.0, generator=generator)
+    return (probs / race).argmax(dim=-1)
+
+
+def phase_sampler(device, peaks, ptxas=None) -> dict:
+    """The narrator's sampler kernel (K7) against its plain version: the
+    kept set (each row's edge), the draws on one seed, the 4-token
+    frequencies at n = 20000; then its time at (640, 50257) and (640, 97)
+    beside the plain version's, the sort route's and the bytes' bound."""
+    import torch
+
+    from helping_hand_for_egocentric_videos_torch.ops import sampling
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    temperature, top_p = 0.7, 0.95
+    report = {}
+    for rows, v, kind in SAMPLER_SHAPES:
+        logits = sampler_logits(rows, v, kind, gen, device)
+        seed = torch.randint(-(2 ** 63), 2 ** 63 - 1, (1,), generator=gen, device=device)
+        thr = torch.empty(rows, device=device)
+        ids = sampling.nucleus_sample(logits, temperature, top_p, seed, threshold=thr)
+        torch.cuda.synchronize()
+        cpu = logits.cpu()
+        scores, edge = sampling.nucleus_threshold_ref(cpu, temperature, top_p)
+        keep, want = scores >= thr.cpu()[:, None], scores >= edge[:, None]
+        ids, want_ids = ids.cpu(), sampling.sample_next_ref(cpu, temperature, top_p, int(seed))
+        r, differ = torch.arange(rows), keep != want
+        res = {"rows": rows, "V": v, "logits": kind, "edges_equal": float((thr.cpu() == edge).float().mean()),
+               "kept_differ": int(differ.sum()), "nucleus_median": float(want.sum(-1).median()),
+               "kept_differ_off_edge": int(((_mass_above(scores)[differ] - top_p).abs() >= 1e-5).sum()),
+               "ids_in_plain_nucleus": float(want[r, ids].float().mean()),
+               "ids_equal_plain": float((ids == want_ids).float().mean())}
+        res["ok"] = (res["kept_differ_off_edge"] == 0 and res["ids_in_plain_nucleus"] >= 0.999
+                     and res["ids_equal_plain"] >= 0.99)
+        say("kernel-vs-plain", kernel="nucleus_sample", **res)
+        if not res["ok"]:
+            raise AssertionError(f"the sampler kernel disagrees with its plain version: {res}")
+        fn = partial(sampling.nucleus_sample, logits, temperature, top_p, seed)
+        events_ms = cuda_ms(fn, 20)
+        try:  # the kernel alone; a trace that lost a launch's event reads nothing
+            ms = device_ms(fn, 20, SAMPLER_KERNEL)
+        except RuntimeError as err:
+            say("kernel-timing", kernel="nucleus_sample", trace=str(err))
+            ms = events_ms
+        plain_ms = cuda_ms(partial(sampling.sample_next_ref, logits, temperature, top_p, 5), 3)
+        sort_ms = cuda_ms(partial(_parent_sample_next, logits, temperature, top_p, gen), 5)
+        nbytes = rows * v * 4 + rows * 8
+        bound_ms = 1e3 * nbytes / peaks["bytes"]
+        timing = {"rows": rows, "V": v, "logits": kind, "ms": ms, "events_ms": events_ms, "plain_ms": plain_ms,
+                  "sort_route_ms": sort_ms, "bound_ms": bound_ms, "bound_by": "bytes", "bound_share": bound_ms / ms,
+                  "achieved_tb_per_s": nbytes / (ms * 1e-3) / 1e12}
+        say("kernel-timing", kernel="nucleus_sample", **timing)
+        report[f"{kind}_V{v}"] = {**res, **timing}
+        del logits, cpu, scores, keep, want
+    # the distribution: a 4-token row at n = 20000 (top_p 0.9 keeps three)
+    n = 20000
+    batch = torch.log(torch.tensor([[0.5, 0.3, 0.15, 0.05]], device=device)).expand(n, -1).contiguous()
+    got = sampling.sample_next(batch, 1.0, 0.9, torch.Generator(device=device).manual_seed(8)).cpu()
+    freq = torch.bincount(got, minlength=4).double() / n
+    want = torch.tensor([0.5, 0.3, 0.15, 0.0], dtype=torch.float64) / 0.95
+    dist = {"freq": [round(float(f), 5) for f in freq], "want": [round(float(f), 5) for f in want],
+            "max_abs_err": float((freq - want).abs().max())}
+    dist["ok"] = dist["max_abs_err"] < 0.02 and float(freq[3]) == 0.0
+    say("kernel-vs-plain", kernel="nucleus_sample", distribution=dist)
+    if not dist["ok"]:
+        raise AssertionError(f"the sampler kernel's draws are off their distribution: {dist}")
+    report.update(distribution=dist, ptxas=(ptxas or {}).get("nucleus_sample"))
+    say("sampler", ptxas=report["ptxas"])
     return report
 
 
@@ -3531,12 +3661,16 @@ def main():
     from helping_hand_for_egocentric_videos_torch.utils.flops import peaks_for
 
     peaks = peaks_for(name)
-    phase_build()
+    ptxas = phase_build()
+    if sys.argv[1:2] == ["--sampler"]:  # the sampler kernel (K7) alone
+        phase_sampler("cuda", peaks, ptxas)
+        return
     report = phase_kernels("cuda", peaks)
     local = _time_local_heads("cuda", peaks)  # the model axis's K1/K2 shapes
     for row in local:
         report[row["mode"]].setdefault("local_heads", []).append(row)
     report.update(phase_int8_kernels("cuda", peaks))
+    report["sampler"] = phase_sampler("cuda", peaks, ptxas)
     for check in _check_bench_shapes("cuda"):  # the shapes of phase 27's forwards
         key = check["kernel"].removeprefix("divided_attention_")
         report[key if key in report else check["kernel"]].setdefault("bench_shapes", []).append(check)

@@ -194,6 +194,95 @@ def test_sampler_draws_from_the_nucleus_and_a_fixed_generator_fixes_the_ids():
     assert (cold == 0).all()  # a low temperature leaves the top token alone in the nucleus
 
 
+def _above(scores):
+    """Each score's softmax mass of the scores strictly greater, in float64."""
+    s = scores.double()
+    p = (s - s.amax(-1, keepdim=True)).exp()
+    p = p / p.sum(-1, keepdim=True)
+    sv, order = torch.sort(s, dim=-1, descending=True)
+    ps = p.gather(1, order)
+    cum = ps.cumsum(-1) - ps
+    pos = torch.arange(sv.shape[1], device=sv.device).expand_as(sv)
+    new = torch.cat([torch.ones_like(sv[:, :1], dtype=torch.bool), sv[:, 1:] != sv[:, :-1]], 1)
+    first = torch.where(new, pos, 0).cummax(-1).values  # a tie group's first member
+    return torch.empty_like(cum).scatter_(1, order, cum.gather(1, first))
+
+
+def _parts_at_the_edge(keep, want_keep, scores, top_p, tol=1e-5):
+    """Two kept sets of the same scores part only where a token's mass above
+    lies within ``tol`` of ``top_p``: sums in another order."""
+    differ = keep != want_keep
+    return bool(((_above(scores)[differ] - top_p).abs() < tol).all())
+
+
+@pytest.mark.parametrize("temperature, top_p", [(0.7, 0.95), (1.0, 0.5), (0.3, 0.99)])
+def test_plain_threshold_matches_reference(temperature, top_p):
+    """The plain version of the kernel's edge keeps the reference's nucleus
+    (``reference_narrator.nucleus``, ``hhbench/reference/narrator.py``'s
+    rule), but where the mass above a token lies at ``top_p`` within
+    rounding, the tolerance of ``test_nucleus_mask_and_temperature_match_reference``."""
+    g = torch.Generator().manual_seed(7)
+    logits = 3.0 * torch.randn(64, 97, generator=g)
+    scores, edge = sampling.nucleus_threshold_ref(logits, temperature, top_p)
+    want_scores, want_drop = ref.nucleus(logits, temperature, top_p)
+    torch.testing.assert_close(scores, want_scores, **F32)
+    keep = scores >= edge[:, None]
+    assert keep.gather(1, scores.argmax(-1, keepdim=True)).all()  # the most likely token always kept
+    assert _parts_at_the_edge(keep, ~want_drop, scores, top_p)
+
+
+def test_philox_known_answers():
+    """The sampler's random bits: Random123's known answers of Philox4x32-10."""
+    cases = (((0, 0, 0, 0), (0, 0), (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+             ((0xFFFFFFFF,) * 4, (0xFFFFFFFF,) * 2, (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+             ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344), (0xA4093822, 0x299F31D0),
+              (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1)))
+    for ctr, key, want in cases:
+        got = sampling._philox(*(torch.tensor([c]) for c in ctr), *key)
+        assert tuple(int(w) for w in got) == want
+    u = sampling.philox_uniform(-5, 3, 1000)
+    assert u.dtype == torch.float32 and (u > 0).all() and (u < 1).all()
+    assert abs(u.double().mean().item() - 0.5) < 0.02
+
+
+@pytest.mark.parametrize("case", ["dominant", "neg_inf", "ties"])
+def test_plain_sampler_edge_cases(case):
+    """A row with one dominant token, rows with -inf entries and rows whose
+    edge falls on exact ties, on the CPU route."""
+    n = 20000
+    gen = torch.Generator().manual_seed(21)
+    if case == "dominant":
+        row = torch.zeros(97)
+        row[13] = 30.0
+        logits = row.expand(n, -1).contiguous()
+        scores, edge = sampling.nucleus_threshold_ref(logits, 1.0, 0.95)
+        assert torch.equal((scores >= edge[:, None]).nonzero()[:, 1], torch.full((n,), 13))
+        assert (sampling.sample_next(logits, 1.0, 0.95, gen) == 13).all()
+    elif case == "neg_inf":
+        row = torch.randn(97, generator=torch.Generator().manual_seed(3))
+        row[::3] = float("-inf")
+        logits = row.expand(n, -1).contiguous()
+        for top_p in (0.9, 1.0):
+            ids = sampling.sample_next(logits, 0.7, top_p, gen)
+            assert torch.isfinite(row[ids]).all()
+        scores, edge = sampling.nucleus_threshold_ref(logits[:1], 0.7, 1.0)
+        assert torch.equal(scores[0] >= edge, torch.isfinite(row))  # top_p 1 keeps every finite token
+        dead = torch.full((2, 97), float("-inf"))
+        assert sampling.nucleus_threshold_ref(dead, 0.7, 0.95)[1].eq(float("inf")).all()
+        assert (sampling.sample_next(dead, 0.7, 0.95, gen) == 0).all()  # no finite logit: 0
+    else:
+        # masses e^2, 3 x e, 1, e^-1: the ties' mass above is 0.437 of the row's
+        row = torch.tensor([2.0, 1.0, 1.0, 1.0, 0.0, -1.0])
+        logits = row.expand(n, -1).contiguous()
+        for top_p, kept in ((0.5, 4), (0.4, 1), (0.0, 1)):
+            scores, edge = sampling.nucleus_threshold_ref(logits[:1], 1.0, top_p)
+            assert torch.equal(scores[0] >= edge, torch.arange(6) < kept), top_p
+        ids = sampling.sample_next(logits, 1.0, 0.5, gen)
+        freq = torch.bincount(ids, minlength=6).double() / n
+        w = torch.tensor([math.e ** 2, math.e, math.e, math.e, 0.0, 0.0], dtype=torch.float64)
+        assert (freq - w / w.sum()).abs().max() < 0.02 and freq[4:].sum() == 0
+
+
 def test_narrate_end_to_end(tiny):
     """ids (B, R, L), BOS first, the same for the same generator; each
     sampled token (up to a sequence's first EOS, after which it is padded)
@@ -325,3 +414,114 @@ def test_cuda_graph_replay_gives_the_eager_steps(cuda_device, widths, monkeypatc
     for p in range(steps):
         torch.testing.assert_close(seen[steps + p], seen[p], rtol=0, atol=0, msg=f"step {p}")
     assert torch.equal(eager, replayed)
+
+
+def _gpt2_scale_logits(rows: int, v: int, seed: int):
+    """Seeded (rows, v) f32 logits of GPT-2's scale (a bulk near -100 with a
+    spread of 3 under a head of 1-64 tokens raised by 5-20), and rows that
+    take the kernel's other paths: 0 flat; 1 with 20000 tokens within 1e-3
+    of each other at the edge (more than its list holds: the row
+    rescanned); 2 of integers (exact ties everywhere); 3 with every fifth
+    entry -inf; 4 one dominant token."""
+    g = torch.Generator().manual_seed(seed)
+    x = -100.0 + 3.0 * torch.randn(rows, v, generator=g)
+    for r in range(rows):
+        k = int(torch.randint(1, 65, (1,), generator=g))
+        x[r, torch.randint(0, v, (k,), generator=g)] += 5.0 + 15.0 * torch.rand(k, generator=g)
+    x[0] = 0.01 * torch.randn(v, generator=g)
+    x[1] = -10.0 + 5.0 * torch.rand(v, generator=g)
+    x[1, :20000] = 1e-3 * torch.rand(20000, generator=g)
+    x[2] = torch.round(3.0 * torch.randn(v, generator=g))
+    x[3, ::5] = float("-inf")
+    x[4] = -100.0
+    x[4, 7] = 0.0
+    return x
+
+
+@pytest.mark.cuda
+def test_sampler_kernel_matches_the_plain_version_at_gpt2_scale(cuda_device):
+    """At the narrator's (640, 50257): the kernel's edge keeps the plain
+    version's nucleus but at rounding's reach of top_p, its draws lie in
+    that nucleus, and on the same seed they are the plain version's ids but
+    where a near tie falls otherwise."""
+    n, v, temperature, top_p = 640, 50257, 0.7, 0.95
+    logits = _gpt2_scale_logits(n, v, seed=30)
+    seed = torch.tensor([-7_212_345_678_901_234_567], device=cuda_device)
+    thr = torch.empty(n, device=cuda_device)
+    before = sampling.nucleus_sample.launches
+    ids = sampling.nucleus_sample(logits.to(cuda_device), temperature, top_p, seed, threshold=thr).cpu()
+    assert sampling.nucleus_sample.launches == before + 1
+    scores, edge = sampling.nucleus_threshold_ref(logits, temperature, top_p)
+    keep, want_keep = scores >= thr.cpu()[:, None], scores >= edge[:, None]
+    assert _parts_at_the_edge(keep, want_keep, scores, top_p)
+    assert (thr.cpu() == edge).float().mean() >= 0.99
+    rows = torch.arange(n)
+    assert keep[rows, ids].all()
+    outside = ~want_keep[rows, ids]
+    assert ((_above(scores)[rows, ids][outside] - top_p).abs() < 1e-5).all()
+    assert ids[4] == 7 and torch.isfinite(logits[3, ids[3]])
+    want = sampling.sample_next_ref(logits, temperature, top_p, int(seed))
+    assert (ids == want).float().mean() >= 0.99
+
+
+@pytest.mark.cuda
+def test_sampler_kernel_draws_from_the_nucleus_and_a_fixed_generator_fixes_the_ids(cuda_device):
+    """``test_sampler_draws_from_the_nucleus_and_a_fixed_generator_fixes_the_ids``
+    through the kernel: the frequencies of a 4-token row at n = 20000."""
+    logits = torch.log(torch.tensor([[0.5, 0.3, 0.15, 0.05]], device=cuda_device))
+    n = 20000
+    batch = logits.expand(n, -1).contiguous()
+    ids = sampling.sample_next(batch, 1.0, 0.9, torch.Generator(cuda_device).manual_seed(8))
+    again = sampling.sample_next(batch, 1.0, 0.9, torch.Generator(cuda_device).manual_seed(8))
+    other = sampling.sample_next(batch, 1.0, 0.9, torch.Generator(cuda_device).manual_seed(9))
+    assert ids.dtype == torch.int64 and ids.device == batch.device
+    assert torch.equal(ids, again) and not torch.equal(ids, other)
+    freq = torch.bincount(ids.cpu(), minlength=4).double() / n
+    want = torch.tensor([0.5, 0.3, 0.15, 0.0], dtype=torch.float64) / 0.95
+    assert (freq - want).abs().max() < 0.02 and freq[3] == 0.0
+    cold = sampling.sample_next(batch, 0.05, 0.9, torch.Generator(cuda_device).manual_seed(8))
+    assert (cold == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("temperature, top_p", [(0.7, 0.95), (1.0, 0.5), (0.3, 0.99), (1.0, 0.0), (1.0, 1.0)])
+def test_sampler_kernel_at_the_tiny_vocabulary(cuda_device, temperature, top_p):
+    """V = 97 (the tiny narrator's): the kernel's edge and ids against the
+    plain version's; the wrapper refuses what the kernel cannot take."""
+    g = torch.Generator().manual_seed(31)
+    logits = 3.0 * torch.randn(256, 97, generator=g)
+    logits[:8] = torch.round(logits[:8])  # ties
+    logits[8, ::2] = float("-inf")
+    seed = torch.tensor([12345], device=cuda_device)
+    thr = torch.empty(256, device=cuda_device)
+    ids = sampling.nucleus_sample(logits.to(cuda_device), temperature, top_p, seed, threshold=thr).cpu()
+    scores, edge = sampling.nucleus_threshold_ref(logits, temperature, top_p)
+    assert _parts_at_the_edge(scores >= thr.cpu()[:, None], scores >= edge[:, None], scores, top_p)
+    assert (ids == sampling.sample_next_ref(logits, temperature, top_p, 12345)).float().mean() >= 0.98
+    wide = torch.zeros(1, sampling.MAX_VOCAB + 1, device=cuda_device)
+    with pytest.raises(ValueError, match=str(sampling.MAX_VOCAB)):
+        sampling.nucleus_sample(wide, 1.0, 0.9, seed)
+    with pytest.raises(TypeError):
+        sampling.nucleus_sample(logits.to(cuda_device, torch.float64), 1.0, 0.9, seed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v", [1, 2, 3, 5, 4099])
+def test_sampler_kernel_at_edge_shapes(cuda_device, v):
+    """Rows of 1-5 and 4099 tokens (each row starting at another offset from
+    a 16-byte boundary), more rows than the kernel has blocks (each block
+    walks several), a row without a finite logit and an empty batch: the
+    plain version's edges and ids."""
+    n = 3000
+    g = torch.Generator().manual_seed(32 + v)
+    logits = 2.0 * torch.randn(n, v, generator=g)
+    logits[7] = float("-inf")
+    logits[8, 0] = float("-inf")
+    seed = torch.tensor([-3], device=cuda_device)
+    thr = torch.empty(n, device=cuda_device)
+    ids = sampling.nucleus_sample(logits.to(cuda_device), 0.7, 0.9, seed, threshold=thr).cpu()
+    _, edge = sampling.nucleus_threshold_ref(logits, 0.7, 0.9)
+    assert (thr.cpu() == edge).float().mean() >= 0.99 and thr[7] == float("inf") and ids[7] == 0
+    assert (ids == sampling.sample_next_ref(logits, 0.7, 0.9, -3)).float().mean() >= 0.99
+    empty = sampling.nucleus_sample(torch.empty(0, v, device=cuda_device), 0.7, 0.9, seed)
+    assert empty.shape == (0,) and empty.dtype == torch.int64
