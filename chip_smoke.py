@@ -54,10 +54,11 @@ failed check raises and the script exits non-zero:
    serving shape (``_time_train_shapes``), and "profiler-check" (K1 and a
    ``torch.mm`` in one trace: the launches it holds of each, with and
    without idle margins around the window), repeated at the end of the run.
-   Then, checked only, the shapes of phase 27's forwards that no other
-   check covers, in bf16 (``BENCH_SHAPES``): K1, K2 and K3 at the bench's
-   eval batch (64, 16), K4 and K5 on its int8 eval's 262144 rows (past
-   65535) and its int8 train step's 16384.
+   Then, checked only, the batches of the benchmark's cells that no other
+   check covers, in bf16 (``CELL_SHAPES``): K1, K2 and K3 at
+   ``embed16.store_b64``'s (64, 16), K4 and K5 on its 262144 rows (past
+   65535) and on ``pretrain4f.step_b16``'s 16384 (the int8 tower at those
+   batches).
    Then ``torch._int_mm`` at the qkv shape (32768 x 1024 . 1024 x 3072),
    in both operand layouts, beside ``F.linear`` in bf16, as a line of its
    own (the port's int8 matmul is ``torch._int_mm``).
@@ -260,18 +261,10 @@ failed check raises and the script exits non-zero:
    the same loop in one process: losses within rtol 1e-4; the online
    EgoMCQ, which both ranks run in bf16, with its similarities within 5e-3
    and the same picks but at near-ties.
-27. bench (after "doctor"): ``tools/torch_bench.py`` with its defaults in a
-   process of its own (the headline bench: the train step at 16 clips of 4
-   frames in bf16 and with the int8 backbone, the end-to-end input path,
-   the 16-frame eval in int8 and, last, in bf16, at the bench's batches):
-   rc 0, every line JSON and none an error or a skip, the stages in order
-   with the bf16 headline last and above 0, each ``mfu`` in (0, 1.05], and
-   each stage's launches a forward or a step those of "serve" (bf16),
-   "serve-int8" (int8) and "train" / "train-loop-int8" (the train steps).
 
 Then one ``{"kernels": [...]}`` line, each kernel's launches summed over
-phases 5, 6, 10, 12-20, 22 and 25-27 (phase 27's as the bench counted them
-over its stages), and, last, ``{"ok": true, "device": {...}}``. Time
+phases 5, 6, 10, 12-20, 22, 25 and 26, and, last, ``{"ok": true, "device":
+{...}}``. Time
 attention is zero-initialised in the model (its qkv feeds the kernel
 zeros), so the smoke gives its weights seeded N(0, 0.02) values.
 """
@@ -298,8 +291,21 @@ from pathlib import Path
 
 import numpy as np
 
+from helping_hand_for_egocentric_videos_torch.ops.bounds import (
+    attention_bound_ms,
+    rows_bound_ms,
+    rows_bytes,
+    sampler_bound_ms,
+    sampler_bytes,
+)
 from helping_hand_for_egocentric_videos_torch.ops.counts import counters, read_counts, reset_counts
-from helping_hand_for_egocentric_videos_torch.utils.profiling import TRACE_MARGIN_S
+from helping_hand_for_egocentric_videos_torch.utils.profiling import (
+    TRACE_MARGIN_S,
+    cuda_ms,
+    device_ms,
+    kernel_events,
+    named_kernels,
+)
 
 SEED = 0
 N, HEADS, DH = 256, 16, 64
@@ -332,64 +338,6 @@ ATTENTION_KERNEL, ROW_KERNEL = "attention_bf16_kernel", "row_int8_kernel"
 
 def say(phase: str, **kw):
     print(f"[{phase}] " + json.dumps(kw), flush=True)
-
-
-def cuda_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn`` in ms over ``iters`` back-to-back calls."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def _kernel_events(fn, iters: int, margin_s: float = TRACE_MARGIN_S) -> list:
-    """``key_averages()`` of a ``torch.profiler`` trace of the device over
-    ``iters`` calls of ``fn``, after one call outside it; ``margin_s``
-    seconds of idle host time open and close the traced window."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        time.sleep(margin_s)
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-        time.sleep(margin_s)
-    return list(prof.key_averages())
-
-
-def _named(events, kernels) -> tuple[int, float]:
-    """(launches, device us) of the events whose names contain one of ``kernels``."""
-    kernels = (kernels,) if isinstance(kernels, str) else kernels
-    hits = [e for e in events if any(k in e.key for k in kernels)]
-    us = sum(float(getattr(e, "self_device_time_total", None) or e.self_cuda_time_total) for e in hits)
-    return sum(e.count for e in hits), us
-
-
-def device_ms(fn, iters: int, kernels, per_call: int = 1) -> float:
-    """Mean device time in ms of the kernels whose names contain one of
-    ``kernels`` (a string or a tuple of them) over ``iters`` calls of ``fn``,
-    each of which launches ``per_call`` of them (K3: its attention and row
-    passes), from a ``torch.profiler`` trace: the kernels alone.
-    Back-to-back calls timed with events (``cuda_ms``) measure the host
-    instead where the wrapper's host time exceeds a short kernel's (K4).
-    Raises where the trace holds another number of their launches than
-    ``per_call * iters``: a trace that lost events would read low."""
-    events = _kernel_events(fn, iters)
-    launches, us = _named(events, kernels)
-    if launches != per_call * iters:
-        raise RuntimeError(f"the trace holds {launches} launches of kernels named like {kernels!r} over {iters} "
-                           f"calls that launch {per_call} each: it lost events, or the calls launch others")
-    return us / iters / 1e3
 
 
 def phase_device():
@@ -476,21 +424,6 @@ def _sdpa_inputs(qkv, ck, cv, mode, heads=HEADS):
     return grp(q).contiguous(), with_cls(ck, k), with_cls(cv, v)
 
 
-def _bound_ms(qkv, mode, peaks, quant_out=False, heads=HEADS) -> tuple[float, str]:
-    b, t, n, d3 = qkv.shape
-    d = d3 // 3
-    es = qkv.element_size()
-    g, w = (t, n) if mode == "space" else (n, t)
-    # the output: D values of the input type a token, or D codes and a scale
-    out_bytes = b * t * n * ((d + 4) if quant_out else d * es)
-    nbytes = qkv.numel() * es + 3 * b * d * es + out_bytes + b * g * heads * (2 + DH) * 4
-    # QK and PV over w + 1 keys for every patch query, and the CLS query over w keys per group
-    flops = 4 * b * t * n * heads * DH * (w + 2)
-    by_bytes = nbytes / peaks["bytes"]
-    by_ops = flops / peaks[str(qkv.dtype).removeprefix("torch.")]
-    return 1e3 * max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
-
-
 def _kernel_vs_plain(qkv, ck, cv, cq, mode, heads=HEADS):
     """The kernel against the plain version in f32 on the same inputs ->
     (the largest error of the patch output and the merged CLS output,
@@ -539,9 +472,9 @@ def phase_kernels(device, peaks):
         ms, events_ms = device_ms(run, 20, ATTENTION_KERNEL), cuda_ms(run, 20)
         plain_ms = cuda_ms(lambda: da.divided_patch_attention_ref(qkv, ck, cv, cq, mode=mode, heads=HEADS), 5)
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20)
-        bound_ms, bound_by = _bound_ms(qkv, mode, peaks)
-        perm = (0, 1, 3, 2, 4) if mode == "space" else (0, 3, 1, 2, 4)
         b, t = qkv.shape[:2]
+        bound_ms, bound_by = attention_bound_ms(b, t, N, HEADS, DH, "bfloat16", mode, peaks)
+        perm = (0, 1, 3, 2, 4) if mode == "space" else (0, 3, 1, 2, 4)
         g = t if mode == "space" else N
         lib_as_out = lib_out.reshape(b, g, HEADS, -1, DH).permute(*perm).reshape(b, t, N, D)
         report[mode] = {
@@ -563,7 +496,7 @@ def phase_kernels(device, peaks):
             "checks": checks,
         }
         say("kernel-timing", mode=mode, B=b, T=t, ms=ms, events_ms=events_ms, plain_ms=plain_ms, library_ms=library_ms,
-            bound_ms=bound_ms, bound_by=bound_by, plan=_plan(N if mode == "space" else t))
+            bound_ms=bound_ms, bound_by=bound_by, plan=da.plan(N if mode == "space" else t, HEADS, DH))
         del qkv, ck, cv, cq, q, k, v, lib_out, ref
         torch.cuda.empty_cache()
         for b, t in EVAL_SHAPES:  # checked only: the eval harnesses' batches
@@ -581,21 +514,6 @@ def phase_kernels(device, peaks):
                 torch.cuda.empty_cache()
     report["space"]["long_clip"] = _time_space_long(device, peaks, gen)
     return report
-
-
-def _plan(w: int, heads: int = HEADS) -> dict:
-    """The bf16 kernel's cut of a group of w rows at ``heads`` heads, dh=64."""
-    import ctypes
-
-    from helping_hand_for_egocentric_videos_torch.ops._build import library
-
-    fn = library("divided_attention").hh_divided_attention_plan
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
-    fn.restype = ctypes.c_int
-    plan = (ctypes.c_longlong * 4)()
-    if fn(w, heads, DH, plan):
-        raise RuntimeError(f"no plan for a group of {w} rows at {heads} heads")
-    return dict(zip(("heads_a_block", "warps_a_block", "streamed", "smem_bytes"), plan))
 
 
 def _time_space_long(device, peaks, gen) -> dict:
@@ -637,7 +555,7 @@ def _time_space_long(device, peaks, gen) -> dict:
         "plain_ms": cuda_ms(lambda: da.divided_patch_attention_ref(qkv, ck, cv, cq, mode="space", heads=HEADS), 5),
         "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20),
     }
-    res["bound_ms"], res["bound_by"] = _bound_ms(qkv, "space", peaks)
+    res["bound_ms"], res["bound_by"] = attention_bound_ms(b, t, N, HEADS, DH, "bfloat16", "space", peaks)
     say("kernel-timing", mode="space", **res)
     del qkv, ck, cv, cq, q, k, v
     torch.cuda.empty_cache()
@@ -715,8 +633,8 @@ def _time_local_heads(device, peaks) -> list[dict]:
                        "plain_ms": cuda_ms(lambda: da.divided_patch_attention_ref(qkv, ck, cv, cq, mode=mode,
                                                                                   heads=heads), 5),
                        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20),
-                       "plan": _plan(N if mode == "space" else t, heads)}
-                res["bound_ms"], res["bound_by"] = _bound_ms(qkv, mode, peaks, heads=heads)
+                       "plan": da.plan(N if mode == "space" else t, heads, DH)}
+                res["bound_ms"], res["bound_by"] = attention_bound_ms(b, t, N, heads, DH, "bfloat16", mode, peaks)
                 say("kernel-timing", at="local-heads", **res)
                 rows.append(res)
                 del qkv, ck, cv, cq, q, k, v
@@ -764,7 +682,8 @@ def _time_train_shapes(device, peaks) -> dict:
                                        2 if quant else 1),
                        "events_ms": cuda_ms(run, 20), "plain_ms": cuda_ms(plain, 5),
                        "library_ms": None if quant else cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20)}
-                res["bound_ms"], res["bound_by"] = _bound_ms(qkv, mode, peaks, quant_out=quant)
+                res["bound_ms"], res["bound_by"] = attention_bound_ms(b, t, N, HEADS, DH, "bfloat16", mode, peaks,
+                                                                      quant_out=quant)
                 key = f"{mode}_int8" if quant else mode
                 say("kernel-timing", mode=key, at=at, **res)
                 out.setdefault(key, {})[at] = res
@@ -773,15 +692,15 @@ def _time_train_shapes(device, peaks) -> dict:
     return out
 
 
-# (B, T) of the bench's forwards that no other check covers: its eval batch
-# (tools/torch_bench.py EVAL_BATCH, both types) for K1-K3, and the B*T*N rows
-# of its int8 eval (past 65535) and int8 train step for K4/K5
-BENCH_SHAPES = {"eval": (64, 16), "rows": ((64, 16), (16, 4))}
+# (B, T) of the benchmark's cells (BENCHMARK.json) that no other check covers:
+# embed16.store_b64's batch for K1-K3, and the B*T*N rows of that batch (past
+# 65535) and of pretrain4f.step_b16's for K4/K5, which the int8 tower runs
+CELL_SHAPES = {"embed16.store_b64": (64, 16), "pretrain4f.step_b16": (16, 4)}
 
 
-def _check_bench_shapes(device) -> list[dict]:
-    """The kernels against their plain versions at ``BENCH_SHAPES`` in
-    bf16 (the bench's type), with phase 3's and phase 4's tolerances."""
+def _check_cell_shapes(device) -> list[dict]:
+    """The kernels against their plain versions at ``CELL_SHAPES`` in bf16
+    (the cells' type), with phase 3's and phase 4's tolerances."""
     import torch
     from torch import nn
 
@@ -790,13 +709,14 @@ def _check_bench_shapes(device) -> list[dict]:
 
     gen = torch.Generator(device=device).manual_seed(SEED + 31)
     checks = []
-    b, t = BENCH_SHAPES["eval"]
+    cell = "embed16.store_b64"
+    b, t = CELL_SHAPES[cell]
     for mode in ("space", "time"):
         qkv = torch.randn(b, t, N, 3 * D, generator=gen, device=device).to(torch.bfloat16)
         ck, cv, cq = (torch.randn(b, D, generator=gen, device=device).to(torch.bfloat16) for _ in range(3))
         err, finite, _ = _kernel_vs_plain(qkv, ck, cv, cq, mode)
         check = {"kernel": f"divided_attention_{mode}", "B": b, "T": t, "dtype": "bfloat16", "max_abs_err": err,
-                 "tolerance": TOL["bfloat16"], "at": "bench"}
+                 "tolerance": TOL["bfloat16"], "at": cell}
         say("kernel-vs-plain", **check)
         if not finite or not err <= TOL["bfloat16"]:
             raise AssertionError(f"{mode} kernel disagrees with the plain version: {check}")
@@ -805,7 +725,7 @@ def _check_bench_shapes(device) -> list[dict]:
         _, parts0 = da.divided_patch_attention(qkv, ck, cv, cq, mode=mode, heads=HEADS)
         want, _ = da.divided_patch_attention_ref(qkv, ck, cv, cq, mode=mode, heads=HEADS, quant_out=True)
         torch.cuda.synchronize()
-        res = {"kernel": f"divided_attention_{mode}_int8", "B": b, "T": t, "dtype": "bfloat16", "at": "bench",
+        res = {"kernel": f"divided_attention_{mode}_int8", "B": b, "T": t, "dtype": "bfloat16", "at": cell,
                "partials_as_without_quant": all(torch.equal(x, y) for x, y in zip(parts, parts0)),
                **_quant_check(got, want)}
         say("kernel-vs-plain", **res)
@@ -824,11 +744,11 @@ def _check_bench_shapes(device) -> list[dict]:
          lambda x: aq.layer_norm_int8_ref(ln, x, 1e-6)),
         ("quick_gelu_int8", MLP, aq.quick_gelu_int8, aq.quick_gelu_int8_ref),
     ):
-        for b, t in BENCH_SHAPES["rows"]:
+        for cell, (b, t) in CELL_SHAPES.items():
             x = torch.randn(b * t * N, d, generator=gen, device=device).to(torch.bfloat16)
             got, want = fn(x), plain(x)
             torch.cuda.synchronize()
-            res = {"kernel": name, "rows": x.shape[0], "D": d, "dtype": "bfloat16", "at": "bench",
+            res = {"kernel": name, "rows": x.shape[0], "D": d, "dtype": "bfloat16", "at": cell,
                    **_quant_check(got, want)}
             say("kernel-vs-plain", **res)
             if not res["ok"]:
@@ -842,9 +762,10 @@ def _check_bench_shapes(device) -> list[dict]:
 def phase_profiler_check(at: str) -> dict:
     """"profiler-check": K1 at the train shape (16, 4) and one bf16
     ``torch.mm`` a call, 20 calls in a ``torch.profiler`` trace of the
-    device: the launches of each that the trace holds, in a window that
-    opens on the first call and in one with ``TRACE_MARGIN_S`` of idle host
-    time on each side (``device_ms``'s). Run after phase 4 and again at the
+    device: the launches of each that the trace holds, in a window with no
+    idle host time around the calls and in one with ``TRACE_MARGIN_S`` of it
+    on each side (``device_ms``'s), each opened by ``kernel_events``'
+    sentinel launches, which it leaves out. Run after phase 4 and again at the
     end of the run, where traces without margins lost kernel events. The
     ``torch.mm`` launches (through PyTorch's runtime) tell whether the trace
     loses every kernel or only those of this repository's libraries (their
@@ -866,8 +787,8 @@ def phase_profiler_check(at: str) -> dict:
     iters = 20
     res = {"at": at, "calls": iters}
     for margin in (0.0, TRACE_MARGIN_S):
-        events = _kernel_events(call, iters, margin)
-        launches, us = _named(events, ATTENTION_KERNEL)
+        events = kernel_events(call, iters, margin)
+        launches, us = named_kernels(events, ATTENTION_KERNEL)
         other = sum(e.count for e in events if ATTENTION_KERNEL not in e.key
                     and e.device_type == torch.autograd.DeviceType.CUDA)
         res[f"margin_{margin}_s"] = {"attention_launches_in_trace": launches, "other_kernels_in_trace": other,
@@ -897,40 +818,6 @@ def _quant_check(got, want) -> dict:
     res["ok"] = (res["finite"] and res["scale_max_rel_err"] <= 1e-5 and res["code_max_diff"] <= 1
                  and res["codes_changed"] <= 1e-3)
     return res
-
-
-def _rows_bytes(rows, d, in_bytes) -> int:
-    """A per-row quantizing pass: read the rows once, write a code a value
-    and a scale a row."""
-    return rows * d * (in_bytes + 1) + rows * 4
-
-
-def _rows_bound_ms(rows, d, in_bytes, ops_per_value, peaks) -> tuple[float, str]:
-    """The pass's bytes over the memory rate, or its f32 arithmetic outside
-    the tensor cores over their rate, whichever is larger."""
-    by_bytes = _rows_bytes(rows, d, in_bytes) / peaks["bytes"]
-    by_ops = rows * d * ops_per_value / peaks["float32"]
-    return 1e3 * max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
-
-
-def _ln_plan(x) -> dict:
-    """K4's cut of the rows of x: its route and launch shape."""
-    import ctypes
-
-    import torch
-
-    from helping_hand_for_egocentric_videos_torch.ops._build import library
-
-    fn = library("act_quant").hh_layer_norm_int8_plan
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                   ctypes.POINTER(ctypes.c_longlong)]
-    fn.restype = ctypes.c_int
-    plan = (ctypes.c_longlong * 4)()
-    d = x.shape[-1]
-    if fn(x.data_ptr(), x.numel() // d, d, int(x.dtype == torch.bfloat16), plan):
-        raise RuntimeError(f"no K4 plan for rows of {d}")
-    route = ("warp_row", "block_row")[plan[0]]
-    return {"route": route, "values_a_lane": plan[1], "blocks": plan[2], "threads_a_block": plan[3]}
 
 
 def phase_int8_kernels(device, peaks):
@@ -990,7 +877,8 @@ def phase_int8_kernels(device, peaks):
             {"B": b, "T": t, "N": N, "H": HEADS, "dh": DH},
             lambda: da.divided_patch_attention(qkv, ck, cv, cq, mode=mode, heads=HEADS, quant_out=True),
             lambda: da.divided_patch_attention_ref(qkv, ck, cv, cq, mode=mode, heads=HEADS, quant_out=True),
-            _bound_ms(qkv, mode, peaks, quant_out=True), (ATTENTION_KERNEL, ROW_KERNEL), per_call=2,
+            attention_bound_ms(b, t, N, HEADS, DH, "bfloat16", mode, peaks, quant_out=True),
+            (ATTENTION_KERNEL, ROW_KERNEL), per_call=2,
         )
         del qkv, ck, cv, cq, got, want, parts, parts0
         torch.cuda.empty_cache()
@@ -1010,14 +898,14 @@ def phase_int8_kernels(device, peaks):
                 x = torch.randn(b * t * N, d, generator=gen, device=device).to(dtype)
                 got, want = fn(x), plain(x)
                 torch.cuda.synchronize()
-                plan = {"plan": _ln_plan(x)} if name == "layer_norm_int8" else {}
+                plan = {"plan": aq.layer_norm_plan(x)} if name == "layer_norm_int8" else {}
                 last = check(name, got, want, rows=x.shape[0], D=d, dtype=str(dtype).removeprefix("torch."),
                              **plan)
         rows = x.shape[0]
         report[name] = entry(
             name, "csrc/act_quant.cu", f"{TPU_ACT_QUANT}:{line}", last, {"rows": rows, "D": d},
-            lambda: fn(x), lambda: plain(x), _rows_bound_ms(rows, d, x.element_size(), ops, peaks), kernel,
-            nbytes=_rows_bytes(rows, d, x.element_size()), **plan,
+            lambda: fn(x), lambda: plain(x), rows_bound_ms(rows, d, x.element_size(), ops, peaks), kernel,
+            nbytes=rows_bytes(rows, d, x.element_size()), **plan,
         )
         del x, got, want
         torch.cuda.empty_cache()
@@ -1035,7 +923,8 @@ def phase_int8_kernels(device, peaks):
             x = torch.randn(2 * 4 * N, d, generator=gen, device=device).to(dtype)
             got, want = aq.layer_norm_int8(wide, x, 1e-6), aq.layer_norm_int8_ref(wide, x, 1e-6)
             torch.cuda.synchronize()
-            info = {"rows": x.shape[0], "D": d, "dtype": str(dtype).removeprefix("torch."), "plan": _ln_plan(x)}
+            info = {"rows": x.shape[0], "D": d, "dtype": str(dtype).removeprefix("torch."),
+                    "plan": aq.layer_norm_plan(x)}
             other_routes.append({**info, **check("layer_norm_int8", got, want, **info)})
     report["layer_norm_int8"]["other_routes"] = other_routes
     return report
@@ -1132,10 +1021,10 @@ def phase_sampler(device, peaks, ptxas=None) -> dict:
             ms = events_ms
         plain_ms = cuda_ms(partial(sampling.sample_next_ref, logits, temperature, top_p, 5), 3)
         sort_ms = cuda_ms(partial(_parent_sample_next, logits, temperature, top_p, gen), 5)
-        nbytes = rows * v * 4 + rows * 8
-        bound_ms = 1e3 * nbytes / peaks["bytes"]
+        nbytes = sampler_bytes(rows, v)
+        bound_ms, bound_by = sampler_bound_ms(rows, v, peaks)
         timing = {"rows": rows, "V": v, "logits": kind, "ms": ms, "events_ms": events_ms, "plain_ms": plain_ms,
-                  "sort_route_ms": sort_ms, "bound_ms": bound_ms, "bound_by": "bytes", "bound_share": bound_ms / ms,
+                  "sort_route_ms": sort_ms, "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": bound_ms / ms,
                   "achieved_tb_per_s": nbytes / (ms * 1e-3) / 1e12}
         say("kernel-timing", kernel="nucleus_sample", **timing)
         report[f"{kind}_V{v}"] = {**res, **timing}
@@ -1155,21 +1044,6 @@ def phase_sampler(device, peaks, ptxas=None) -> dict:
     report.update(distribution=dist, ptxas=(ptxas or {}).get("nucleus_sample"))
     say("sampler", ptxas=report["ptxas"])
     return report
-
-
-def _headgrid_plan(t: int, items: int) -> dict:
-    """K6's bf16 cut for T frames and B*N*H items at dh=64."""
-    import ctypes
-
-    from helping_hand_for_egocentric_videos_torch.ops._build import library
-
-    fn = library("divided_attention_long").hh_time_attention_headgrid_plan
-    fn.argtypes = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
-    fn.restype = ctypes.c_int
-    plan = (ctypes.c_longlong * 5)()
-    if fn(t, items, DH, plan):
-        raise RuntimeError(f"no head-grid plan for T={t}")
-    return dict(zip(("blocks", "warps_a_block", "item_slots", "smem_bytes", "blocks_an_sm"), plan))
 
 
 def _time_headgrid(qkv, ck, cv, cq, ref, peaks) -> dict:
@@ -1192,9 +1066,9 @@ def _time_headgrid(qkv, ck, cv, cq, ref, peaks) -> dict:
         "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20),
         "library_max_abs_err": (lib_as_out.float() - ref).abs().max().item(),
     }
-    res["bound_ms"], res["bound_by"] = _bound_ms(qkv, "time", peaks)
+    res["bound_ms"], res["bound_by"] = attention_bound_ms(b, t, N, HEADS, DH, "bfloat16", "time", peaks)
     res.update(bound_share=res["bound_ms"] / res["ms"], vs_library=res["ms"] / res["library_ms"],
-               plan=_headgrid_plan(t, b * N * HEADS))
+               plan=da.headgrid_plan(t, b * N * HEADS, DH))
     say("kernel-timing", kernel="time_attention_headgrid", **res)
     return res
 
@@ -3559,64 +3433,6 @@ def phase_profile(card, log_dir: Path):
                              "trace lost kernel events (profile line)")
 
 
-BENCH_TIMEOUT_S = 480  # the bench's own budget is larger; a slower run fails the smoke
-BENCH_STAGES = ("device_probe", "train_clips_per_sec_per_chip_4f", "train_clips_per_sec_per_chip_4f_int8_backbone",
-                "clips_per_sec_e2e_16f_eval_bf16", "clips_per_sec_per_chip_16f_eval_int8",
-                "clips_per_sec_per_chip_16f_eval")
-
-
-def phase_bench(card):
-    """"bench": ``tools/torch_bench.py`` with its defaults, in a process of
-    its own. rc 0; every line JSON, none an ``_error`` or ``_skipped``
-    line, the stages in bench.py's order, the headline
-    ``clips_per_sec_per_chip_16f_eval`` last with a value above 0; each
-    ``mfu`` in (0, 1.05]; the launches a forward (``launches``, over the
-    stage's warm call) those of "serve" in bf16 (the e2e and eval lines)
-    and of "serve-int8" with int8, and a train step's K1 and K2 24 times
-    each (K3 24 + 24, K4 72, K5 24 with the int8 backbone). -> the stages'
-    launches (``launches_total``)."""
-    from types import SimpleNamespace
-
-    from helping_hand_for_egocentric_videos_torch.models import lavila
-
-    script = Path(__file__).resolve().parent / "tools" / "torch_bench.py"
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, str(script)], capture_output=True, text=True, timeout=BENCH_TIMEOUT_S,
-                          cwd=script.parent.parent)
-    seconds = time.perf_counter() - t0
-    try:
-        lines = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.strip()]
-    except ValueError as e:
-        raise AssertionError(f"bench: a line is not JSON ({e}); stdout tail: {proc.stdout[-2000:]}") from e
-    for ln in lines:
-        print("[bench-line] " + json.dumps(ln), flush=True)
-
-    def per_forward(t, int8):
-        return {k: v for k, v in launches_per_forward(
-            SimpleNamespace(lavila_cfg=lavila.timesformer_large_config(t), int8=int8)).items() if v}
-
-    want = {"train_clips_per_sec_per_chip_4f": per_forward(TRAIN_T, False),
-            "train_clips_per_sec_per_chip_4f_int8_backbone": per_forward(TRAIN_T, True),
-            "clips_per_sec_e2e_16f_eval_bf16": per_forward(SERVE_T, False),
-            "clips_per_sec_per_chip_16f_eval_int8": per_forward(SERVE_T, True),
-            "clips_per_sec_per_chip_16f_eval": per_forward(SERVE_T, False)}
-    metrics = [ln.get("metric") for ln in lines]
-    bad = [m for m in metrics if str(m).endswith(("_error", "_skipped"))]
-    mfu_bad = [ln["metric"] for ln in lines if "mfu" in ln and not (ln["mfu"] is not None and 0 < ln["mfu"] <= 1.05)]
-    launch_bad = [m for ln in lines if (m := ln.get("metric")) in want and ln.get("launches") != want[m]]
-    say("bench", card=card, rc=proc.returncode, seconds=seconds, stages=metrics, errors=bad, mfu_out_of_range=mfu_bad,
-        launches_off=launch_bad, headline=lines[-1] if lines else None)
-    if proc.returncode != 0 or bad or metrics != list(BENCH_STAGES) or mfu_bad or launch_bad \
-            or not lines[-1].get("value", 0) > 0:
-        raise AssertionError(f"bench: rc {proc.returncode}, stages {metrics}, errors {bad}, mfu out of range "
-                             f"{mfu_bad}, launches off {launch_bad} (bench line); stderr tail: {proc.stderr[-2000:]}")
-    total = dict.fromkeys(counters(), 0)
-    for ln in lines:
-        for k, v in ln.get("launches_total", {}).items():
-            total[k] += v
-    return total
-
-
 def phase_eval(card, device="cuda", backbone="timesformer_large") -> dict:
     """The eval phases and "visualize" on one pair of reference-layout
     checkpoints (full width, 4 frames), written under ``build/``. -> their
@@ -3671,9 +3487,9 @@ def main():
         report[row["mode"]].setdefault("local_heads", []).append(row)
     report.update(phase_int8_kernels("cuda", peaks))
     report["sampler"] = phase_sampler("cuda", peaks, ptxas)
-    for check in _check_bench_shapes("cuda"):  # the shapes of phase 27's forwards
+    for check in _check_cell_shapes("cuda"):  # the batches of the benchmark's cells
         key = check["kernel"].removeprefix("divided_attention_")
-        report[key if key in report else check["kernel"]].setdefault("bench_shapes", []).append(check)
+        report[key if key in report else check["kernel"]].setdefault("cell_shapes", []).append(check)
     for key, cells in _time_train_shapes("cuda", peaks).items():  # before the phases that spoil traces
         report[key].update({"train_shape": cells["train"], "loop_shape": cells["train-loop"]})
     phase_profiler_check("after phase 4")
@@ -3709,16 +3525,13 @@ def main():
     shutil.rmtree(loop_root, ignore_errors=True)
     phase_doctor(card)
     phase_profiler_check("end")
-    gc.collect()
-    torch.cuda.empty_cache()
-    launches_bench = phase_bench(card)
     # launches on the main path: the serving runs at 16 and at 128 frames, bf16
     # and int8, the eval CLIs and visualize, the train steps, the training loops,
-    # both ranks of the split backbone's steps and loop, the loop on the CLIP
-    # bootstrap, and the bench's stages
+    # both ranks of the split backbone's steps and loop, and the loop on the CLIP
+    # bootstrap
     total = {k: launches[k] + launches8[k] + launches_long[k] + launches_eval[k] + launches_train[k]
              + launches_loop[k] + launches_loop8[k] + launches_dist[k] + launches_tp[k] + launches_boot[k]
-             + launches_bench[k] for k in counters()}
+             for k in counters()}
     counts = {
         "space": total["divided_attention_space"], "time": total["divided_attention_time"],
         "space_int8": total["divided_attention_space_int8"], "time_int8": total["divided_attention_time_int8"],

@@ -2,57 +2,18 @@
 
 Counterpart of ``helping_hand_for_egocentric_videos_tpu/cli/common.py``:
 the eval CLIs' arguments and the model they build, their progress and
-results lines, the process group of a ``torchrun`` launch, the
-environment line, and the bounded probe of the card that a benchmark
-runs before it touches CUDA. The port's CLIs run on the CUDA device
-unless given ``--device cpu``.
+results lines, the process group of a ``torchrun`` launch and the
+environment line. The port's CLIs run on the CUDA device unless given
+``--device cpu``.
 """
 
 from __future__ import annotations
 
 import json
-import subprocess
-import sys
 
 import torch
 
-__all__ = ["add_eval_args", "bounded_device_probe", "build_eval_model", "dump", "maybe_init_distributed",
-           "print_env", "progress"]
-
-# The probe's child: one op on cuda:0, waited for, then the card as
-# nvidia-smi names it and its power limit.
-_PROBE = (
-    "import json, subprocess, torch\n"
-    "torch.ones((), device='cuda:0').add_(1).item()\n"
-    "smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],\n"
-    "                     capture_output=True, text=True, timeout=60).stdout.strip().splitlines()\n"
-    "print(json.dumps({'platform': 'gpu', 'device_kind': torch.cuda.get_device_name(0),\n"
-    "                  'n': torch.cuda.device_count(), 'card': smi[0] if smi else None}))\n"
-)
-
-
-def bounded_device_probe(timeout: float) -> dict | None:
-    """Check that the CUDA device answers, in a subprocess under ``timeout``
-    seconds.
-
-    A wedged card can block the first CUDA call of a process for
-    good, so a benchmark asks a child first and initialises CUDA in its
-    own process only once the child has answered. The child imports
-    torch, runs one op on ``cuda:0`` and waits for it. Returns
-    ``{"platform": "gpu", "device_kind": <torch's device name>, "n":
-    <device count>, "card": <nvidia-smi's "name, power limit" line or
-    None>}``, or None on a timeout or any failure. Counterpart of the JAX
-    package's ``cli/common.py::bounded_device_probe``."""
-    try:
-        proc = subprocess.run([sys.executable, "-c", _PROBE], capture_output=True, text=True, timeout=timeout)
-    except subprocess.TimeoutExpired:
-        return None
-    if proc.returncode != 0 or not proc.stdout.strip():
-        return None
-    try:
-        return json.loads(proc.stdout.strip().splitlines()[-1])
-    except ValueError:
-        return None
+__all__ = ["add_eval_args", "build_eval_model", "dump", "maybe_init_distributed", "print_env", "progress"]
 
 
 def maybe_init_distributed(device="cuda"):

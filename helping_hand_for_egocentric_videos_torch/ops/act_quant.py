@@ -21,7 +21,8 @@ runs the plain version; a CUDA tensor runs the kernel in
 on a CUDA tensor a wrapper raises where grad mode is on and the
 activation requires grad (the LayerNorm's parameters are read as
 constants on both routes). Launches are counted in the integer attribute
-``launches`` of each wrapper.
+``launches`` of each wrapper. ``layer_norm_plan`` reports the route and
+launch shape K4 takes for a tensor's rows, on the card only.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ __all__ = [
     "quick_gelu_int8",
     "quick_gelu_int8_ref",
     "check_no_grad",
+    "layer_norm_plan",
 ]
 
 MAX_WIDTH = 4096  # the kernels hold a row in registers: 16 values a thread
@@ -160,6 +162,19 @@ def quick_gelu_int8(x):
     _raise_on(rc, "quick_gelu_int8")
     quick_gelu_int8.launches += 1
     return codes, scales
+
+
+def layer_norm_plan(x) -> dict:
+    """K4's cut of the rows of the CUDA tensor x: its route (a warp a row,
+    or a block a row), values a lane, blocks and threads a block."""
+    d = x.shape[-1]
+    fn = _entry("hh_layer_norm_int8_plan", 1, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                ctypes.POINTER(ctypes.c_longlong))
+    plan = (ctypes.c_longlong * 4)()
+    if fn(x.data_ptr(), x.numel() // d, d, int(x.dtype == torch.bfloat16), plan):
+        raise RuntimeError(f"no K4 plan for rows of {d}")
+    route = ("warp_row", "block_row")[plan[0]]
+    return {"route": route, "values_a_lane": plan[1], "blocks": plan[2], "threads_a_block": plan[3]}
 
 
 layer_norm_int8.launches = 0

@@ -7,7 +7,7 @@ the frames (``mode="time"``). The CLS query, which attends over the whole
 ``1 + T*N`` sequence, is assembled from per-group streaming-softmax
 partials by ``merge_cls_partials``.
 
-Three things live here:
+Four things live here:
 
 - ``divided_patch_attention_ref``: the plain PyTorch version. The CPU
   tests compare it with the JAX kernel, and ``chip_smoke.py`` compares the
@@ -24,6 +24,9 @@ Three things live here:
   K6) goes to ``csrc/divided_attention_long.cu`` and is counted in
   ``launches_time_headgrid``; its plain version is
   ``time_attention_headgrid_ref``.
+- ``plan`` and ``headgrid_plan``: the cut of the work that the bf16
+  kernels pick for a shape (heads and warps a block, shared memory), as
+  their libraries report it; on the card only.
 
 The kernels have no backward (nor have the JAX package's Pallas kernels:
 its backbone is frozen), so on a CUDA tensor the wrapper raises where
@@ -58,8 +61,10 @@ from .act_quant import MAX_WIDTH, check_no_grad, quantize_rows_ref
 __all__ = [
     "divided_patch_attention",
     "divided_patch_attention_ref",
+    "headgrid_plan",
     "merge_cls_partials",
     "needs_head_grid",
+    "plan",
     "time_attention_headgrid_ref",
 ]
 
@@ -283,6 +288,32 @@ def _launch_headgrid(qkv, cls_k, cls_v, cls_q, heads: int):
     if rc != 0:
         raise RuntimeError(f"time_attention_headgrid kernel launch failed: cudaError {rc}")
     return out, (pm, ps, co)
+
+
+def plan(w: int, heads: int, dh: int) -> dict:
+    """K1/K2's bf16 cut of a group of ``w`` rows at ``heads`` heads of width
+    ``dh``: heads and warps a block, whether the keys and values are
+    streamed in tiles, and the dynamic shared memory a block."""
+    fn = library("divided_attention").hh_divided_attention_plan
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * 4)()
+    if fn(w, heads, dh, out):
+        raise RuntimeError(f"no plan for a group of {w} rows at {heads} heads")
+    return dict(zip(("heads_a_block", "warps_a_block", "streamed", "smem_bytes"), out))
+
+
+def headgrid_plan(t: int, items: int, dh: int) -> dict:
+    """K6's bf16 cut for tubes of ``t`` frames and ``items`` = B*N*H (tube,
+    head) items at head width ``dh``: its persistent blocks, their warps and
+    item slots, the dynamic shared memory a block and blocks an SM."""
+    fn = library("divided_attention_long").hh_time_attention_headgrid_plan
+    fn.argtypes = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * 5)()
+    if fn(t, items, dh, out):
+        raise RuntimeError(f"no head-grid plan for T={t}")
+    return dict(zip(("blocks", "warps_a_block", "item_slots", "smem_bytes", "blocks_an_sm"), out))
 
 
 def divided_patch_attention(qkv, cls_k, cls_v, cls_q, *, mode: str, heads: int,

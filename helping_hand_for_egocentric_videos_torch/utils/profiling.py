@@ -23,6 +23,11 @@ is the process's, as the profiler it follows is.
 ``count(name, n)`` adds ``n`` to a counter of that table (the names and
 what they count: ``COUNTERS``), under a profiler only; ``spans()`` gives
 its sum as ``count``, with no time.
+
+The kernels' timers, on a CUDA device: ``cuda_ms`` times back-to-back
+calls with CUDA events; ``device_ms`` reads the named kernels' own device
+time from a ``torch.profiler`` trace of the calls (``kernel_events``,
+``named_kernels``).
 """
 
 from __future__ import annotations
@@ -38,7 +43,8 @@ import torch
 from torch.autograd import profiler as _autograd_profiler
 from torch.autograd.profiler import record_function
 
-__all__ = ["COUNTERS", "SPANS", "count", "span", "spans", "trace", "top_ops"]
+__all__ = ["COUNTERS", "SPANS", "count", "cuda_ms", "device_ms", "kernel_events", "named_kernels", "span", "spans",
+           "trace", "top_ops"]
 
 # Every span's name and the layer it marks. The step's five phases (the
 # backbone's graph replay nested in its phase), the eval forward's three and
@@ -210,6 +216,81 @@ def trace(log_dir: str, device="cuda"):
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
     with open(os.path.join(log_dir, "spans.json"), "w") as f:
         json.dump(spans(), f, indent=1, sort_keys=True)
+
+
+def cuda_ms(fn, iters: int) -> float:
+    """Mean device time of ``fn`` in ms over ``iters`` back-to-back calls,
+    between two CUDA events, after one call outside them."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+# A trace of the device often drops the record of the first kernel in its
+# window (33 of 36 windows on an H100 under torch 2.11), so
+# ``kernel_events`` opens each window with a few launches of this kernel of
+# PyTorch's (``torch.cuda._sleep``) and leaves them out of what it returns.
+_SENTINEL, _SENTINELS = "spin_kernel", 4
+
+
+def kernel_events(fn, iters: int, margin_s: float = TRACE_MARGIN_S) -> list:
+    """``key_averages()`` of a ``torch.profiler`` trace of the device over
+    ``iters`` calls of ``fn``, after one call outside it; ``margin_s``
+    seconds of idle host time open and close the traced window, and the
+    sentinel launches that come first in it are left out."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(margin_s)
+        for _ in range(_SENTINELS):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(margin_s)
+    return [e for e in prof.key_averages() if _SENTINEL not in e.key]
+
+
+def named_kernels(events, kernels) -> tuple[int, float]:
+    """(launches, device us) of the events whose names contain one of
+    ``kernels`` (a string or a tuple of them)."""
+    kernels = (kernels,) if isinstance(kernels, str) else kernels
+    hits = [e for e in events if any(k in e.key for k in kernels)]
+    us = sum(float(getattr(e, "self_device_time_total", None) or e.self_cuda_time_total) for e in hits)
+    return sum(e.count for e in hits), us
+
+
+# Traces ``device_ms`` takes before it gives up on one that holds every
+# launch: now and then a trace holds no kernel at all (one window in 36 on
+# an H100 under torch 2.11).
+TRACE_TRIES = 3
+
+
+def device_ms(fn, iters: int, kernels, per_call: int = 1) -> float:
+    """Mean device time in ms of the kernels whose names contain one of
+    ``kernels`` (a string or a tuple of them) over ``iters`` calls of ``fn``,
+    each of which launches ``per_call`` of them (K3: its attention and row
+    passes), from a ``torch.profiler`` trace: the kernels alone.
+    Back-to-back calls timed with events (``cuda_ms``) measure the host
+    instead where the wrapper's host time exceeds a short kernel's (K4).
+    A trace that holds another number of their launches than ``per_call *
+    iters`` is never read (one that lost events would read low): the calls
+    are traced again, and after ``TRACE_TRIES`` such traces it raises."""
+    for _ in range(TRACE_TRIES):
+        launches, us = named_kernels(kernel_events(fn, iters), kernels)
+        if launches == per_call * iters:
+            return us / iters / 1e3
+    raise RuntimeError(f"the last of {TRACE_TRIES} traces held {launches} launches of kernels named like {kernels!r} "
+                       f"over {iters} calls that launch {per_call} each: they lost events, or the calls launch others")
 
 
 def _self_us(events) -> list[float]:

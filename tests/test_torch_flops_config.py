@@ -1,6 +1,7 @@
 """The port's copies of ``core/config.py`` and ``utils/flops.py`` against
 the JAX package's originals: the same names and defaults for every config
-field the port keeps, the same FLOP counts for the same model shapes."""
+field the port keeps, the same FLOP counts for the same model shapes; and
+the card's peaks, the denominators of every mfu and bound."""
 
 import dataclasses
 
@@ -50,6 +51,33 @@ def test_flop_counters_equal_jax(backbone, frames):
     assert tflops.text_fwd_flops(tl.text) == jflops.text_fwd_flops(jl.text)
     assert tflops.decoder_fwd_flops(td) == jflops.decoder_fwd_flops(jd)
     assert tflops.train_step_flops_per_clip(tl, td) == jflops.train_step_flops_per_clip(jl, jd)
+
+
+def test_flop_counters_pin_jax_figures():
+    """TimeSformer-L's 16-frame eval forward within 1% of ``bench.py``'s
+    FLOPS_PER_CLIP_16F and equal to JAX's; its 4-frame train step at 5
+    captions a clip equal to JAX's."""
+    def configs(frames, pred_traj):
+        lcfg = lavila.timesformer_large_config(num_frames=frames)
+        return lcfg, DecoderConfig(num_frames=frames, feature_dim=lcfg.visual.width, text_width=lcfg.text.width,
+                                   patches_per_frame=lcfg.visual.patches_per_frame, pred_traj=pred_traj)
+
+    ev = tflops.eval_fwd_flops_per_clip(*configs(16, pred_traj=False))
+    assert abs(ev - 3.458e12) / 3.458e12 < 0.01  # bench.py FLOPS_PER_CLIP_16F
+    assert ev == jflops.eval_fwd_flops_per_clip(jlavila.timesformer_large_config(num_frames=16),
+                                                JaxDecoderConfig(num_frames=16, pred_traj=False))
+    tr = tflops.train_step_flops_per_clip(*configs(4, pred_traj=True), rephrase_factor=5)
+    assert tr == jflops.train_step_flops_per_clip(jlavila.timesformer_large_config(num_frames=4),
+                                                  JaxDecoderConfig(num_frames=4), rephrase_factor=5)
+
+
+def test_peak_table_and_its_column_by_name():
+    assert tflops.PEAKS == {
+        "sxm": {"bytes": 3.35e12, "bfloat16": 989e12, "float32": 67e12, "int8": 1979e12},
+        "pcie": {"bytes": 2.0e12, "bfloat16": 756e12, "float32": 51e12, "int8": 1513e12},
+    }
+    assert tflops.peaks_for("NVIDIA H100 80GB HBM3") is tflops.PEAKS["sxm"]
+    assert tflops.peaks_for("NVIDIA H100 PCIe") is tflops.PEAKS["pcie"]
 
 
 @pytest.mark.parametrize("overrides", [{}, {"data.input_res": 160, "parallel.backbone_dtype": "float32",

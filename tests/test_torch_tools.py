@@ -223,6 +223,28 @@ def test_trace_keeps_idle_margins_around_the_body(tmp_path):
     assert profiling.top_ops(str(tmp_path), k=100)
 
 
+def test_device_ms_reads_only_a_trace_that_holds_every_launch(monkeypatch):
+    """``device_ms`` sums the named kernels' device time (a tuple of names,
+    matched as substrings) over a trace that holds ``per_call * iters`` of
+    their launches; a trace that lost one is taken again, and after
+    ``TRACE_TRIES`` of them it raises."""
+    from types import SimpleNamespace
+
+    def trace(attention):
+        return [SimpleNamespace(key="void attention_bf16_kernel<64>", count=attention, self_device_time_total=100.0),
+                SimpleNamespace(key="row_int8_kernel", count=20, self_device_time_total=60.0),
+                SimpleNamespace(key="gemm", count=20, self_device_time_total=1e6)]
+
+    traces = iter([trace(19), trace(20)])
+    monkeypatch.setattr(profiling, "kernel_events", lambda fn, iters: next(traces))
+    assert profiling.device_ms(None, 20, ("attention_bf16", "row_int8"), per_call=2) == 160.0 / 20 / 1e3
+    calls = []
+    monkeypatch.setattr(profiling, "kernel_events", lambda fn, iters: calls.append(1) or trace(19))
+    with pytest.raises(RuntimeError, match="lost events"):
+        profiling.device_ms(None, 20, "attention_bf16_kernel")
+    assert len(calls) == profiling.TRACE_TRIES
+
+
 def test_top_ops_self_time_rule(tmp_path):
     ev = [
         {"ph": "X", "cat": "cpu_op", "name": "outer", "pid": 1, "tid": 1, "ts": 0, "dur": 10},

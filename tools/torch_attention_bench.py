@@ -10,27 +10,27 @@ yardstick; the port never calls it), with CUDA events over ``--iters``
 launches, ``--repeat`` times in turn, and the device time of every kernel
 a call launches in a ``torch.profiler`` trace (``device_ms``, with the
 launches a call by name: K3 is two, its attention and row passes); beside
-``chip_smoke._bound_ms`` and the kernel's cut (``chip_smoke._plan``,
-``chip_smoke._headgrid_plan``).
+its bound (``ops.bounds.attention_bound_ms``) and the kernel's cut
+(``ops.divided_attention.plan``, ``headgrid_plan``).
 
 Rows (32768 rows of the serving shape, bf16, seeded N(0, 1)): K4
 (LayerNorm -> int8, D=1024, gamma 1 + 0.2 N(0, 1), beta 0.1 N(0, 1)) and K5
 (QuickGELU -> int8, D=4096), each beside its plain version, the bytes it
-moves, its bound (``chip_smoke._rows_bound_ms``) and the share of it
+moves, its bound (``ops.bounds.rows_bound_ms``) and the share of it
 reached, from the kernel's device time in a ``torch.profiler`` trace
-(``chip_smoke.device_ms``: back-to-back calls timed with events measure the
-wrapper's host time where it exceeds the kernel's); K4 with its route
-(``chip_smoke._ln_plan``).
+(``utils.profiling.device_ms``: back-to-back calls timed with events
+measure the wrapper's host time where it exceeds the kernel's); K4 with its
+route (``ops.act_quant.layer_norm_plan``).
 
 One JSON line per (kernel, shape), after the card's ``nvidia-smi`` name and
 power limit.
 
     python3 tools/torch_attention_bench.py [--iters 50] [--repeat 3] [--kernels K6 K4]
 
-To compare two versions on one card, copy this script and ``chip_smoke.py``
-into the other checkout and run it from the root of each checkout in the
-same call, in turns (old, new, new, old): it times each checkout's own
-wrappers.
+To compare two versions on one card, run it from the root of each
+checkout in the same call, in turns (old, new, new, old): it times each
+checkout's own wrappers. The shapes and the SDPA yardstick's inputs are
+``chip_smoke.py``'s.
 """
 
 from __future__ import annotations
@@ -51,7 +51,13 @@ import chip_smoke  # noqa: E402
 from helping_hand_for_egocentric_videos_torch.ops import act_quant as aq  # noqa: E402
 from helping_hand_for_egocentric_videos_torch.ops import divided_attention as da  # noqa: E402
 from helping_hand_for_egocentric_videos_torch.ops._build import library  # noqa: E402
+from helping_hand_for_egocentric_videos_torch.ops.bounds import (  # noqa: E402
+    attention_bound_ms,
+    rows_bound_ms,
+    rows_bytes,
+)
 from helping_hand_for_egocentric_videos_torch.utils.flops import peaks_for  # noqa: E402
+from helping_hand_for_egocentric_videos_torch.utils.profiling import cuda_ms, device_ms, kernel_events  # noqa: E402
 
 CASES = (  # (kernel, mode, quant_out, head_grid, B, T)
     ("K1", "space", False, None, 8, 16), ("K1", "space", False, None, 2, 128),
@@ -70,20 +76,20 @@ def _plan_of(lib: str, symbol: str, plan_fn, *args):
 
 def _window(fn, iters: int) -> dict:
     """Every kernel one call of ``fn`` launches, from a ``torch.profiler``
-    trace of ``iters`` calls (``chip_smoke._kernel_events``): the device ms
-    a call (all of them) and the launches a call by kernel name."""
-    kernels = [e for e in chip_smoke._kernel_events(fn, iters) if e.device_type == torch.autograd.DeviceType.CUDA]
+    trace of ``iters`` calls (``kernel_events``): the device ms a call (all
+    of them) and the launches a call by kernel name."""
+    kernels = [e for e in kernel_events(fn, iters) if e.device_type == torch.autograd.DeviceType.CUDA]
     us = sum(float(getattr(e, "self_device_time_total", None) or e.self_cuda_time_total) for e in kernels)
     return {"device_ms": us / iters / 1e3, "launches_a_call": {e.key[:60]: e.count / iters for e in kernels}}
 
 
 def _times(runs: dict, iters: int, repeat: int) -> dict:
-    return {key: [chip_smoke.cuda_ms(fn, iters if key != "plain_ms" else 5) for _ in range(repeat)]
+    return {key: [cuda_ms(fn, iters if key != "plain_ms" else 5) for _ in range(repeat)]
             for key, fn in runs.items()}
 
 
 def bench_attention(args, card, peaks):
-    n, heads, d = chip_smoke.N, chip_smoke.HEADS, chip_smoke.D
+    n, heads, d, dh = chip_smoke.N, chip_smoke.HEADS, chip_smoke.D, chip_smoke.DH
     gen = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED)
     for kernel, mode, quant_out, head_grid, b, t in CASES:
         if args.kernels and kernel not in args.kernels:
@@ -102,11 +108,11 @@ def bench_attention(args, card, peaks):
         windows = [_window(runs["ms"], args.iters) for _ in range(args.repeat)]
         extra = {"device_ms": min(w["device_ms"] for w in windows), "device_all": [w["device_ms"] for w in windows],
                  "launches_a_call": windows[0]["launches_a_call"]}
-        bound_ms, bound_by = chip_smoke._bound_ms(qkv, mode, peaks, quant_out=quant_out)
-        plan = (_plan_of("divided_attention_long", "hh_time_attention_headgrid_plan", chip_smoke._headgrid_plan, t,
-                         b * n * heads) if head_grid else chip_smoke._plan(n if mode == "space" else t))
+        bound_ms, bound_by = attention_bound_ms(b, t, n, heads, dh, "bfloat16", mode, peaks, quant_out=quant_out)
+        plan = (_plan_of("divided_attention_long", "hh_time_attention_headgrid_plan", da.headgrid_plan, t,
+                         b * n * heads, dh) if head_grid else da.plan(n if mode == "space" else t, heads, dh))
         print(json.dumps({"metric": "attention_timing", "kernel": kernel, "mode": mode, "quant_out": quant_out,
-                          "B": b, "T": t, "N": n, "H": heads, "dh": chip_smoke.DH, "card": card,
+                          "B": b, "T": t, "N": n, "H": heads, "dh": dh, "card": card,
                           **{key: min(v) for key, v in times.items()}, "all": times, "bound_ms": bound_ms,
                           "bound_by": bound_by, "bound_share": bound_ms / extra["device_ms"], "plan": plan, **extra}),
               flush=True)
@@ -127,16 +133,16 @@ def bench_rows(args, card, peaks):
                 ln.weight.copy_(1.0 + 0.2 * torch.randn(d, generator=gen, device="cuda"))
                 ln.bias.copy_(0.1 * torch.randn(d, generator=gen, device="cuda"))
             runs = {"ms": lambda: aq.layer_norm_int8(ln, x, 1e-6), "plain_ms": lambda: aq.layer_norm_int8_ref(ln, x, 1e-6)}
-            extra = {"plan": _plan_of("act_quant", "hh_layer_norm_int8_plan", chip_smoke._ln_plan, x)}
+            extra = {"plan": _plan_of("act_quant", "hh_layer_norm_int8_plan", aq.layer_norm_plan, x)}
             # the warp-row kernel, or the block-row one of an older checkout
             name = "ln_int8_warp_kernel" if extra["plan"] else "row_int8_kernel"
         else:
             runs = {"ms": lambda: aq.quick_gelu_int8(x), "plain_ms": lambda: aq.quick_gelu_int8_ref(x)}
             extra, name = {}, "row_int8_kernel"
         times = _times(runs, args.iters, args.repeat)
-        dev = [chip_smoke.device_ms(runs["ms"], args.iters, name) for _ in range(args.repeat)]
-        nbytes = chip_smoke._rows_bytes(rows, d, x.element_size())
-        bound_ms, bound_by = chip_smoke._rows_bound_ms(rows, d, x.element_size(), ops, peaks)
+        dev = [device_ms(runs["ms"], args.iters, name) for _ in range(args.repeat)]
+        nbytes = rows_bytes(rows, d, x.element_size())
+        bound_ms, bound_by = rows_bound_ms(rows, d, x.element_size(), ops, peaks)
         ms = min(dev)
         print(json.dumps({"metric": "rows_timing", "kernel": kernel, "rows": rows, "D": d, "dtype": "bfloat16",
                           "card": card, **{key: min(v) for key, v in times.items()}, "all": times,

@@ -169,12 +169,28 @@ def tiny_models(t=4):
 
 def large_models(t=4):
     """TimeSformer-L at ``t`` frames and the 13-query decoder at its default
-    widths, seeded, time attention N(0, 0.02) (``torch_bench.build_models``)
-    -> as ``tiny_models``."""
-    import torch_bench
+    widths over its features, from one seeded generator, time attention
+    N(0, 0.02) (zero in the model, which would feed its kernel zeros) -> as
+    ``tiny_models``."""
+    import torch
 
-    lavila_cfg, dec_cfg = torch_bench.configs("timesformer_large", t, pred_traj=True)
-    backbone, decoder = torch_bench.build_models(lavila_cfg, dec_cfg, "cpu")
+    from helping_hand_for_egocentric_videos_torch.models import (
+        DecoderConfig,
+        Lavila,
+        ObjDecoder,
+        timesformer_large_config,
+    )
+
+    lavila_cfg = timesformer_large_config(num_frames=t)
+    dec_cfg = DecoderConfig(num_frames=t, feature_dim=lavila_cfg.visual.width, text_width=lavila_cfg.text.width,
+                            patches_per_frame=lavila_cfg.visual.patches_per_frame, pred_traj=True)
+    gen = torch.Generator().manual_seed(0)
+    backbone = Lavila(lavila_cfg, generator=gen)
+    decoder = ObjDecoder(dec_cfg, generator=gen)
+    with torch.no_grad():
+        for blk in backbone.visual.blocks:
+            blk.timeattn.qkv.weight.normal_(0.0, 0.02, generator=gen)
+            blk.timeattn.proj.weight.normal_(0.0, 0.02, generator=gen)
     return lavila_cfg, backbone, dec_cfg, decoder
 
 

@@ -14,15 +14,16 @@ per T: clips/s, ms/clip, TFLOP/clip (``utils.flops.eval_fwd_flops_per_clip``)
 and its share of the card's dense bf16 peak (``mfu_bf16``), the peak of
 ``torch.cuda.max_memory_allocated``, and which time-attention kernel ran
 (K2 ``divided_attention_time`` or K6 ``time_attention_headgrid``) with the
-launches of every kernel per forward, and one forward traced with
-``torch.profiler`` (``tools/torch_forward_profile.py``: device time by
-group and the largest kernels, the idle share); then a summary line.
+launches of every kernel per forward, and one forward traced
+(``utils.profiling.trace``, read with ``top_ops``: its wall time, the
+device's busy time and idle share within it, the largest kernels; the
+trace under ``build/torch_longclip_bench/``); then a summary line.
 
 Before the model sweep, the two time-attention kernels alone: K2 and K6,
 each forced, on the same seeded bf16 qkv (N=256, H=16, dh=64) at every
 (B, T) of ``--frames`` and at the 16-frame serving bucket (8, 16), timed
-with CUDA events, beside the bound of ``chip_smoke._bound_ms`` and the
-largest difference between their outputs. One JSON line per shape.
+with CUDA events, beside their bound (``ops.bounds.attention_bound_ms``)
+and the largest difference between their outputs. One JSON line per shape.
 
     python3 tools/torch_longclip_bench.py [--batch 2] [--steps 4] [--frames 16 32 64 128]
 """
@@ -41,8 +42,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-import chip_smoke  # noqa: E402
-import torch_forward_profile  # noqa: E402
 from helping_hand_for_egocentric_videos_torch.data import ClipTokenizer  # noqa: E402
 from helping_hand_for_egocentric_videos_torch.models import (  # noqa: E402
     DecoderConfig,
@@ -51,11 +50,14 @@ from helping_hand_for_egocentric_videos_torch.models import (  # noqa: E402
     timesformer_large_config,
 )
 from helping_hand_for_egocentric_videos_torch.models.weights import inflate_temporal_embed  # noqa: E402
+from helping_hand_for_egocentric_videos_torch.ops.bounds import attention_bound_ms  # noqa: E402
 from helping_hand_for_egocentric_videos_torch.ops.counts import read_counts, reset_counts  # noqa: E402
 from helping_hand_for_egocentric_videos_torch.train import EvalModel  # noqa: E402
 from helping_hand_for_egocentric_videos_torch.utils.flops import eval_fwd_flops_per_clip, peaks_for  # noqa: E402
+from helping_hand_for_egocentric_videos_torch.utils.profiling import cuda_ms, top_ops, trace  # noqa: E402
 
 INIT_T, RES = 4, 224
+TRACES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "build", "torch_longclip_bench")
 
 
 def build(t: int) -> EvalModel:
@@ -72,6 +74,21 @@ def build(t: int) -> EvalModel:
     lcfg = timesformer_large_config(num_frames=t)
     dcfg = DecoderConfig(num_queries=13, num_frames=t, pred_traj=False)
     return EvalModel(backbone, lcfg, decoder, dcfg, ClipTokenizer(), input_res=RES, device="cuda")
+
+
+def profile_forward(model, clips, log_dir: str) -> dict:
+    """One forward traced into ``log_dir`` after a warm one: its wall time,
+    the device's busy time and idle share within it, the six largest
+    kernels."""
+    model.embed_video(clips)
+    with trace(log_dir):
+        t0 = time.perf_counter()
+        model.embed_video(clips)  # returns host arrays: the device is done
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [(ms, name) for ms, where, name in top_ops(log_dir, k=1 << 20) if where == "device"]
+    busy = sum(ms for ms, _ in kernels)
+    return {"wall_ms": wall_ms, "device_busy_ms": busy, "idle_share": max(0.0, 1.0 - busy / wall_ms),
+            "top_kernels": [{"name": name[:120], "ms": ms} for ms, name in kernels[:6]]}
 
 
 def bench_t(t: int, batch: int, steps: int, peak_bf16: float) -> dict:
@@ -101,9 +118,7 @@ def bench_t(t: int, batch: int, steps: int, peak_bf16: float) -> dict:
         else "K2 divided_attention_time",
         "launches_per_forward": per_forward,
     }
-    trace = torch_forward_profile.profile_forward(model, clips)
-    row["profile"] = {k: trace[k] for k in ("wall_ms", "device_busy_ms", "idle_share", "by_group_ms")}
-    row["profile"]["top_kernels"] = trace["top_kernels"][:6]
+    row["profile"] = profile_forward(model, clips, os.path.join(TRACES, f"T{t}"))
     del model
     return row
 
@@ -112,8 +127,9 @@ def time_kernels(shapes, peaks) -> list[dict]:
     """K2 against K6 on the same inputs at each (B, T), bf16."""
     from helping_hand_for_egocentric_videos_torch.ops import divided_attention as da
 
-    n, heads, d = chip_smoke.N, chip_smoke.HEADS, chip_smoke.D
-    gen = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED)
+    vcfg = timesformer_large_config().visual
+    n, heads, d = vcfg.patches_per_frame, vcfg.heads, vcfg.width
+    gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
     for b, t in shapes:
         qkv = torch.randn(b, t, n, 3 * d, generator=gen, device="cuda").to(torch.bfloat16)
@@ -124,10 +140,10 @@ def time_kernels(shapes, peaks) -> list[dict]:
         (o2, p2), (o6, p6) = runs["K2"](), runs["K6"]()
         cls2, cls6 = (da.merge_cls_partials(*p, cq, ck, cv, heads) for p in (p2, p6))
         diff = max((o2.float() - o6.float()).abs().max().item(), (cls2 - cls6).abs().max().item())
-        bound_ms, bound_by = chip_smoke._bound_ms(qkv, "time", peaks)
-        row = {"metric": "time_kernel_sweep", "B": b, "T": t, "N": n, "H": heads, "dh": chip_smoke.DH,
-               "dtype": "bfloat16", "K2_ms": chip_smoke.cuda_ms(runs["K2"], 20),
-               "K6_ms": chip_smoke.cuda_ms(runs["K6"], 20), "bound_ms": bound_ms, "bound_by": bound_by,
+        bound_ms, bound_by = attention_bound_ms(b, t, n, heads, d // heads, "bfloat16", "time", peaks)
+        row = {"metric": "time_kernel_sweep", "B": b, "T": t, "N": n, "H": heads, "dh": d // heads,
+               "dtype": "bfloat16", "K2_ms": cuda_ms(runs["K2"], 20),
+               "K6_ms": cuda_ms(runs["K6"], 20), "bound_ms": bound_ms, "bound_by": bound_by,
                "K2_vs_K6_max_abs_diff": diff, "default_route": "K6" if da.needs_head_grid(t, n, heads) else "K2"}
         print(json.dumps(row), flush=True)
         rows.append(row)
