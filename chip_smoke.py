@@ -73,6 +73,20 @@ failed check raises and the script exits non-zero:
    the port had before it and the bytes' bound, and its registers and
    spills. ``python3 chip_smoke.py --sampler`` runs phases 1-2 and this
    alone.
+   Then the narrator's decode attention (K8, ``phase_decode_attention``)
+   at the benchmark's shapes in bf16, inputs seeded N(0, 1): the self mode
+   at 640 sequences x 25 heads over 1, 33 and 77 of 77 cached positions,
+   the query a strided view of ``c_attn``'s packed output as
+   ``models/gpt2.py`` has it, and the cross mode at 64 clips x 10 rows
+   over 256 latents, each through the route the decode step takes against
+   its plain version (within one bf16 rounding, rtol 2^-7) and against f32
+   SDPA (its relative gap no larger than bf16 SDPA's), the same bits twice,
+   and the launch counts read back (both modes' counters set to 0 just
+   before); then its time (profiler and events) beside the plain
+   version's, SDPA's (``library_ms``, the call the decode step made before
+   K8) and the bound of ``ops/bounds.decode_attention_bound_ms``, and each
+   mode's cut and ptxas line. ``python3 chip_smoke.py --decode-attention``
+   runs phases 1-2 and this alone.
 5. serve: the full-width TimeSformer-L (16 frames) + object decoder from
    seeded random weights behind ``ServingEngine`` and the HTTP server on
    127.0.0.1; text, video, similarity and health requests from several
@@ -262,8 +276,9 @@ failed check raises and the script exits non-zero:
    EgoMCQ, which both ranks run in bf16, with its similarities within 5e-3
    and the same picks but at near-ties.
 
-Then one ``{"kernels": [...]}`` line, each kernel's launches summed over
-phases 5, 6, 10, 12-20, 22, 25 and 26, and, last, ``{"ok": true, "device":
+Then one ``{"kernels": [...]}`` line, each tower kernel's launches summed
+over phases 5, 6, 10, 12-20, 22, 25 and 26, then K8's entry with its
+launches in its own phase, and, last, ``{"ok": true, "device":
 {...}}``. Time
 attention is zero-initialised in the model (its qkv feeds the kernel
 zeros), so the smoke gives its weights seeded N(0, 0.02) values.
@@ -293,6 +308,7 @@ import numpy as np
 
 from helping_hand_for_egocentric_videos_torch.ops.bounds import (
     attention_bound_ms,
+    decode_attention_bound_ms,
     rows_bound_ms,
     rows_bytes,
     sampler_bound_ms,
@@ -1043,6 +1059,99 @@ def phase_sampler(device, peaks, ptxas=None) -> dict:
         raise AssertionError(f"the sampler kernel's draws are off their distribution: {dist}")
     report.update(distribution=dist, ptxas=(ptxas or {}).get("nucleus_sample"))
     say("sampler", ptxas=report["ptxas"])
+    return report
+
+
+# (mode, sequences or clips, keys): the narrator's 640 sequences x 25 heads over its self cache of 77
+# positions, and 64 clips x 10 rows over 256 latents
+DECODE_SHAPES = (("self", 640, 1), ("self", 640, 33), ("self", 640, 77), ("cross", 64, 256))
+DECODE_H, DECODE_DH, DECODE_S, DECODE_R = 25, 64, 77, 10
+DECODE_KERNEL = {"self": "decode_sdpa_self_kernel", "cross": "decode_sdpa_cross_kernel"}
+
+
+def _rel_gap(x, ref) -> float:
+    return float((x.float() - ref).norm() / ref.norm())
+
+
+def phase_decode_attention(device, peaks, ptxas=None) -> dict:
+    """The narrator's decode attention kernel (K8) in both modes at the
+    benchmark's shapes, through the route ``models/gpt2.py`` calls: against
+    its plain version and against SDPA in f32 and bf16, the same bits
+    twice, its launches counted; then its time beside the plain version's,
+    SDPA's and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from helping_hand_for_egocentric_videos_torch.ops import decode_attention as dec
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 8)
+    h, dh, r = DECODE_H, DECODE_DH, DECODE_R
+    dec.decode_sdpa_self.launches = dec.decode_sdpa_cross.launches = 0
+    rows = []
+    for mode, b, keys in DECODE_SHAPES:
+        if mode == "self":  # q a view of c_attn's (N, 3, H, dh) rows; k, v as cache.kv[i, 0 / 1]
+            n = b
+            q = torch.randn(n, 3 * h * dh, generator=gen, device=device).to(torch.bfloat16).view(n, 3, h, dh)[:, 0]
+            kv = torch.randn(2, n, h, DECODE_S, dh, generator=gen, device=device).to(torch.bfloat16)
+            k, v = kv[0], kv[1]
+            fn = partial(dec.self_attention, q, k, v, keys)
+            plain = partial(dec.self_attention_ref, q, k, v, keys)
+
+            def sdpa(q, k, v, keys=keys):
+                return F.scaled_dot_product_attention(q[:, :, None], k[:, :, :keys], v[:, :, :keys]).reshape(
+                    q.shape[0], -1)
+            bound_ms, bound_by = decode_attention_bound_ms("self", n, h, keys, dh, "bfloat16", peaks)
+            counter = dec.decode_sdpa_self
+        else:  # a clip's 10 rows over its (H, M, dh) latent keys and values
+            n = b * r
+            q = torch.randn(n, h * dh, generator=gen, device=device).to(torch.bfloat16).view(n, h, dh)
+            kv = torch.randn(2, b, h, keys, dh, generator=gen, device=device).to(torch.bfloat16)
+            k, v = kv[0], kv[1]
+            fn = partial(dec.cross_attention, q, k, v, r)
+            plain = partial(dec.cross_attention_ref, q, k, v, r)
+
+            def sdpa(q, k, v, b=b):
+                out = F.scaled_dot_product_attention(q.view(b, r, h, dh).transpose(1, 2), k, v)
+                return out.transpose(1, 2).reshape(b * r, -1)
+            bound_ms, bound_by = decode_attention_bound_ms("cross", n, h, keys, dh, "bfloat16", peaks, r=r)
+            counter = dec.decode_sdpa_cross
+        before = counter.launches
+        got, again = fn(), fn()
+        launched = counter.launches - before
+        ref = plain()
+        f32 = sdpa(q.float(), k.float(), v.float())
+        lib = sdpa(q, k, v)
+        torch.cuda.synchronize()
+        err = ((got.float() - ref.float()).abs() - 2 ** -7 * ref.float().abs()).amax()
+        res = {"mode": mode, "rows": n, "H": h, "dh": dh, "keys": keys, "launches_two_calls": launched,
+               "max_abs_err_vs_plain": float((got.float() - ref.float()).abs().max()),
+               "worst_excess_over_rtol": float(err), "gap_to_f32": _rel_gap(got, f32),
+               "library_gap_to_f32": _rel_gap(lib, f32), "same_bits": bool(torch.equal(got, again))}
+        res["ok"] = (launched == 2 and res["worst_excess_over_rtol"] <= 1e-5 and res["same_bits"]
+                     and res["gap_to_f32"] <= res["library_gap_to_f32"])
+        say("kernel-vs-plain", kernel="decode_attention", **res)
+        if not res["ok"]:
+            raise AssertionError(f"the decode-attention kernel disagrees with its plain version or SDPA: {res}")
+        events_ms = cuda_ms(fn, 20)
+        try:  # the kernel alone; a trace that lost a launch's event reads nothing
+            ms = device_ms(fn, 20, DECODE_KERNEL[mode])
+        except RuntimeError as e:
+            say("kernel-timing", kernel="decode_attention", trace=str(e))
+            ms = events_ms
+        timing = {"mode": mode, "rows": n, "keys": keys, "ms": ms, "events_ms": events_ms,
+                  "plain_ms": cuda_ms(plain, 3), "library_ms": cuda_ms(partial(sdpa, q, k, v), 20),
+                  "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": bound_ms / ms,
+                  "plan": dec.plan(mode, keys if mode == "cross" else 256)}
+        say("kernel-timing", kernel="decode_attention", **timing)
+        rows.append({**res, **timing})
+        del q, kv, k, v, got, again, ref, f32, lib
+        torch.cuda.empty_cache()
+    launches = dec.launches()
+    report = {"name": "decode_attention", "route": "cuda", "source": f"{REPO}/csrc/decode_attention.cu",
+              "replaces": None, "kernels": list(DECODE_KERNEL.values()), "launches": launches,
+              "tolerance": "plain version rtol 2^-7 (atol 1e-5); relative gap to f32 SDPA <= bf16 SDPA's",
+              "shapes": rows, "ptxas": (ptxas or {}).get("decode_attention")}
+    say("decode-attention", launches=launches, ptxas=report["ptxas"])
     return report
 
 
@@ -3481,12 +3590,16 @@ def main():
     if sys.argv[1:2] == ["--sampler"]:  # the sampler kernel (K7) alone
         phase_sampler("cuda", peaks, ptxas)
         return
+    if sys.argv[1:2] == ["--decode-attention"]:  # the decode-attention kernel (K8) alone
+        phase_decode_attention("cuda", peaks, ptxas)
+        return
     report = phase_kernels("cuda", peaks)
     local = _time_local_heads("cuda", peaks)  # the model axis's K1/K2 shapes
     for row in local:
         report[row["mode"]].setdefault("local_heads", []).append(row)
     report.update(phase_int8_kernels("cuda", peaks))
     report["sampler"] = phase_sampler("cuda", peaks, ptxas)
+    report["decode_attention"] = phase_decode_attention("cuda", peaks, ptxas)
     for check in _check_cell_shapes("cuda"):  # the batches of the benchmark's cells
         key = check["kernel"].removeprefix("divided_attention_")
         report[key if key in report else check["kernel"]].setdefault("cell_shapes", []).append(check)
@@ -3543,7 +3656,8 @@ def main():
             raise AssertionError(f"{report[key]['name']} was not launched on the main path")
         report[key]["launches"] = n
         report[key]["card"] = card
-    print(json.dumps({"kernels": [report[k] for k in counts]}), flush=True)
+    report["decode_attention"]["card"] = card  # its launches are its own phase's: the smoke narrates nothing
+    print(json.dumps({"kernels": [report[k] for k in (*counts, "decode_attention")]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)
 

@@ -72,11 +72,14 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--fps", type=float, default=30.0)
     p.add_argument("--threads", type=int, default=4)
-    p.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
+    p.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"],
+                   help="the model's type; float32 on the CPU only (the card's decode attention takes bf16)")
     p.add_argument("--device", default="cuda",
                    help="torch device of the model (default: the CUDA device; 'cpu' runs the kernels' plain "
                    "versions)")
     args = p.parse_args(argv)
+    if args.dtype == "float32" and not args.device.startswith("cpu"):
+        p.error("--dtype float32 runs on the CPU only: the decode-attention kernel takes bfloat16")
     common.print_env(args.device)
 
     import torch

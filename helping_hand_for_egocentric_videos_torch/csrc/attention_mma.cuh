@@ -2,7 +2,7 @@
 // (sm_90a): tensor-core products (mma.sync m16n8k16, bf16 in, f32 sums),
 // fragment loads from shared memory (ldmatrix) and 16-byte asynchronous
 // copies from device memory (cp.async). Included by divided_attention.cu
-// (K1, K2, K3) and divided_attention_long.cu (K6).
+// (K1, K2, K3), divided_attention_long.cu (K6) and decode_attention.cu (K8).
 //
 // Fragment layout of m16n8k16 (g = lane / 4, tq = lane % 4):
 //   A (16x16, row-major): a0 = (row g, cols 2tq, 2tq+1), a1 = (row g+8, the
@@ -32,6 +32,16 @@ __device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (x, y) rounded to a bf16 pair h, and the bf16 pair r of what the rounding
+// left out: h + r holds about 16 bits of each.
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& h, uint32_t& r) {
+  const __nv_bfloat162 hv = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(hv);
+  const __nv_bfloat162 rv = __floats2bfloat162_rn(x - hf.x, y - hf.y);
+  h = *reinterpret_cast<const uint32_t*>(&hv);
+  r = *reinterpret_cast<const uint32_t*>(&rv);
 }
 
 __device__ __forceinline__ float dot_pair(uint32_t u, const float* w) {

@@ -155,16 +155,6 @@ __device__ __forceinline__ void cls_rows(const bf16* kr, const bf16* vr, int nk,
   }
 }
 
-// (x, y) rounded to a bf16 pair h, and the bf16 pair r of what the rounding
-// left out: h + r holds about 16 bits of each.
-__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& h, uint32_t& r) {
-  const __nv_bfloat162 hv = __floats2bfloat162_rn(x, y);
-  const float2 hf = __bfloat1622float2(hv);
-  const __nv_bfloat162 rv = __floats2bfloat162_rn(x - hf.x, y - hf.y);
-  h = *reinterpret_cast<const uint32_t*>(&hv);
-  r = *reinterpret_cast<const uint32_t*>(&rv);
-}
-
 __device__ __forceinline__ void store_pair(bf16* p, float x, float y) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
 }

@@ -28,19 +28,26 @@ to and including ``pos``. Teacher-forced logits of whole sequences are
 these steps at every position.
 
 Precision: the stream, weights and caches in the model's type (bf16 on the
-card); LayerNorm statistics in f32 (``F.layer_norm`` of a bf16 input), attention
-through ``F.scaled_dot_product_attention`` (its softmax in f32), and the
-logits in f32 (``lm_logits``: on the card one bf16 GEMM with an f32
-output).
+card); LayerNorm statistics in f32 (``F.layer_norm`` of a bf16 input), the
+attention's scores, softmax and sums in f32, and the logits in f32
+(``lm_logits``: on the card one bf16 GEMM with an f32 output). Both
+attention calls of a step go through ``ops/decode_attention.py``: on the
+card the hand-written kernel K8, which takes bf16 at head width 64 and
+raises on anything else (the self mode reads the query rows in place from
+``c_attn``'s output, the cross mode a clip's keys once for its R rows,
+both write the rows ``c_proj`` takes); on the CPU
+``F.scaled_dot_product_attention``.
 
 ``Decoder`` holds one batch shape's cache and runs its decode steps: on
-the card, once a batch has run them eagerly (the warm-up: cuBLAS's and
-cuDNN's plans for every key length), each position's step is recorded into
+the card, once a batch has run them eagerly (the warm-up: cuBLAS's plans
+and the kernels' first launches), each position's step is recorded into
 a CUDA graph over the same cache and replayed for every later batch, one
 launch a step in place of about 1200 (its shapes never change: ``pos`` is
 the graph's). The recording is skipped while a torch profiler runs; the
 replays are not. A graph replays the same kernels on the same inputs, so
-the same logits.
+the same logits. ``Decoder.kernel_calls`` keeps how many K8 launches each
+graph holds, and a replay adds them to ``hh.narrate.decode_attn_kernel_calls``
+as the eager step's wrapper calls do.
 
 Departures from the published forward, none of them in its arithmetic:
 the cache layouts put the layer first ((layers, 2, N, H, S, dh) and
@@ -60,7 +67,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.autograd import profiler as _autograd_profiler
 
-from ..utils.profiling import span
+from ..ops import decode_attention
+from ..utils.profiling import count, span
 
 __all__ = ["Decoder", "GPT2Config", "GatedGPT2", "NarrateCache", "conv1d", "decode_step", "lm_logits",
            "prefill_cross"]
@@ -246,19 +254,17 @@ def _self_attend(blk: _Block, cfg: GPT2Config, h, cache: NarrateCache, i: int, p
     q, k, v = conv1d(blk.attn.c_attn, h).view(n, 3, cfg.n_head, cfg.head_dim).unbind(1)
     cache.write(i, k, v, pos)
     with span("hh.narrate.decode.attn", device):
-        out = F.scaled_dot_product_attention(q[:, :, None], cache.kv[i, 0, :, :, :pos + 1],
-                                             cache.kv[i, 1, :, :, :pos + 1])
-    return conv1d(blk.attn.c_proj, out.reshape(n, -1))
+        out = decode_attention.self_attention(q, cache.kv[i, 0], cache.kv[i, 1], pos + 1)
+    return conv1d(blk.attn.c_proj, out)
 
 
 def cross_attend(blk: _Block, cfg: GPT2Config, h, cache: NarrateCache, j: int, device):
     """One step's gated cross-attention of (N, d) rows: a clip's r query
     rows against its M keys of ``cache.cross[j]``, scaled by tanh(gate)."""
-    n, r = h.shape[0], cache.r
-    q = conv1d(blk.crossattention.q_attn, h).view(n // r, r, cfg.n_head, cfg.head_dim).transpose(1, 2)
+    q = conv1d(blk.crossattention.q_attn, h).view(h.shape[0], cfg.n_head, cfg.head_dim)
     with span("hh.narrate.decode.attn", device):
-        out = F.scaled_dot_product_attention(q, cache.cross[j, 0], cache.cross[j, 1])
-    out = conv1d(blk.crossattention.c_proj, out.transpose(1, 2).reshape(n, -1))
+        out = decode_attention.cross_attention(q, cache.cross[j, 0], cache.cross[j, 1], cache.r)
+    out = conv1d(blk.crossattention.c_proj, out)
     return torch.tanh(blk.cross_attn_gate).to(out.dtype) * out
 
 
@@ -289,6 +295,7 @@ class Decoder:
         self.lm, self.cfg, self.cache = lm, cfg, cache
         self.storage = _storage(lm)
         self.graphs: list = []
+        self.kernel_calls: list = []  # decode-attention kernel launches each graph holds
         self._ids = self._logits = None
 
     def matches(self, lm: GatedGPT2, clips: int, r: int, length: int, latents: int, device) -> bool:
@@ -301,6 +308,7 @@ class Decoder:
         if pos < len(self.graphs):
             self._ids.copy_(ids)
             self.graphs[pos].replay()
+            count("hh.narrate.decode_attn_kernel_calls", self.kernel_calls[pos])
             return self._logits
         return decode_step(self.lm, self.cfg, self.cache, ids, pos)
 
@@ -318,16 +326,18 @@ class Decoder:
         current = torch.cuda.current_stream(device)
         side = torch.cuda.Stream(device)
         side.wait_stream(current)
-        graphs = []
+        graphs, calls = [], []
         with torch.cuda.stream(side):
             for pos in range(steps):
                 g = torch.cuda.CUDAGraph()
+                before = decode_attention.launches()
                 # thread_local: a loader's threads may allocate while this one records
                 with torch.cuda.graph(g, pool=pool, stream=side, capture_error_mode="thread_local"):
                     self._logits.copy_(decode_step(self.lm, self.cfg, self.cache, self._ids, pos))
                 graphs.append(g)
+                calls.append(decode_attention.launches() - before)
         current.wait_stream(side)
-        self.graphs = graphs
+        self.graphs, self.kernel_calls = graphs, calls
 
 
 def _storage(module) -> tuple:

@@ -16,11 +16,15 @@ quotes them.
   the bytes it moves.
 - ``sampler_bound_ms``: the nucleus sampler over a row of logits a
   sequence (K7); ``sampler_bytes`` the bytes it moves.
+- ``decode_attention_bound_ms``: the narrator's decode attention over a
+  cache (K8, both modes); ``decode_attention_work`` its bytes and
+  operations.
 """
 
 from __future__ import annotations
 
-__all__ = ["attention_bound_ms", "rows_bound_ms", "rows_bytes", "sampler_bound_ms", "sampler_bytes"]
+__all__ = ["attention_bound_ms", "decode_attention_bound_ms", "decode_attention_work", "rows_bound_ms", "rows_bytes",
+           "sampler_bound_ms", "sampler_bytes"]
 
 # bytes a value by type name
 _SIZE = {"float32": 4, "bfloat16": 2}
@@ -71,3 +75,23 @@ def sampler_bound_ms(rows: int, vocab: int, peaks) -> tuple[float, str]:
     """The sampler's bytes over the memory rate: its arithmetic is counted
     by no rate of the card's."""
     return 1e3 * sampler_bytes(rows, vocab) / peaks["bytes"], "bytes"
+
+
+def decode_attention_work(mode: str, rows: int, heads: int, keys: int, dh: int, dtype: str,
+                          r: int = 1) -> tuple[int, int]:
+    """(bytes, operations) of one decode attention call of ``rows`` query
+    rows of ``heads`` heads of width ``dh`` in ``dtype``, ``mode`` "self"
+    (a row over its own ``keys`` cached positions) or "cross" (``r`` rows a
+    clip over the clip's ``keys`` latents, read once for the ``r``): read the
+    keys and values and the query rows, write the output rows; QK and PV
+    over every key of every row."""
+    es = _SIZE[dtype]
+    kv_rows = rows if mode == "self" else rows // r
+    nbytes = (kv_rows * 2 * keys + 2 * rows) * heads * dh * es
+    return nbytes, 4 * rows * heads * keys * dh
+
+
+def decode_attention_bound_ms(mode: str, rows: int, heads: int, keys: int, dh: int, dtype: str, peaks,
+                              r: int = 1) -> tuple[float, str]:
+    nbytes, ops = decode_attention_work(mode, rows, heads, keys, dh, dtype, r)
+    return _bound(nbytes, ops, peaks, dtype)

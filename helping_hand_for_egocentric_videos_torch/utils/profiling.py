@@ -76,6 +76,7 @@ COUNTERS = {
     "hh.narrate.decode_steps": "decode steps run (one token of every sequence of a batch)",
     "hh.narrate.tokens": "tokens drawn",
     "hh.narrate.sample_kernel_rows": "rows drawn by the hand-written sampler kernel (ops/sampling.py, csrc/nucleus_sample.cu)",
+    "hh.narrate.decode_attn_kernel_calls": "decode attention calls made by the hand-written kernel (ops/decode_attention.py, csrc/decode_attention.cu), replayed ones included",
     "hh.narrate.self_cache_bytes": "bytes of the self-attention caches allocated, one a narrated batch",
     "hh.narrate.cross_cache_bytes": "bytes of the cross-attention caches allocated, one a narrated batch",
 }

@@ -35,7 +35,7 @@ from helping_hand_for_egocentric_videos_torch.models.narrator import (
     encode_video,
     narrator_tiny_config,
 )
-from helping_hand_for_egocentric_videos_torch.ops import sampling
+from helping_hand_for_egocentric_videos_torch.ops import decode_attention, sampling
 from helping_hand_for_egocentric_videos_torch.ops.preprocess import resize_normalize
 
 F32 = dict(rtol=1e-5, atol=1e-5)
@@ -390,11 +390,16 @@ def test_cuda_graph_replay_gives_the_eager_steps(cuda_device, widths, monkeypatc
     the next, on the same clips with the same generator, replays the
     graphs: the same logits at every step, so the same ids. ``full``: the
     published widths (GPT-2 XL's 1600, 25 heads, the 50257 vocabulary, the
-    336 px tower) at depth 2 and 1 tower block, in bf16."""
+    336 px tower) at depth 2 and 1 tower block, in bf16. At both widths the
+    attention calls of every step take the decode-attention kernel (K8),
+    eager and recorded into the graphs."""
     from helping_hand_for_egocentric_videos_torch.models.narrator import NarratorConfig
 
-    if widths == "tiny":  # a tower of head dim 32, the least the card's divided-attention kernel takes
-        cfg = narrator_tiny_config(visual=dataclasses.replace(narrator_tiny_config().visual, width=64))
+    if widths == "tiny":  # a tower of head dim 32, the least the card's divided-attention kernel takes, and
+        # one language-model head of 64, the width the card's decode-attention kernel takes
+        tiny_cfg = narrator_tiny_config()
+        cfg = narrator_tiny_config(visual=dataclasses.replace(tiny_cfg.visual, width=64),
+                                   lm=dataclasses.replace(tiny_cfg.lm, n_head=1))
     else:
         base = NarratorConfig()
         cfg = NarratorConfig(visual=dataclasses.replace(base.visual, depth=1),
@@ -406,11 +411,17 @@ def test_cuda_graph_replay_gives_the_eager_steps(cuda_device, widths, monkeypatc
     real = narrator.sample_next
     monkeypatch.setattr(narrator, "sample_next", lambda logits, *a, **k: (seen.append(logits.clone()),
                                                                            real(logits, *a, **k))[1])
+    before = decode_attention.launches()
     eager = model.narrate(video, torch.Generator(cuda_device).manual_seed(21))
-    assert len(model.decoder(B, cfg.num_img_queries, cuda_device).graphs) == cfg.max_text_length - 1
+    dec = model.decoder(B, cfg.num_img_queries, cuda_device)
+    steps = cfg.max_text_length - 1
+    assert len(dec.graphs) == steps
+    # every attention call of a step takes the decode-attention kernel, eager and recorded
+    per_step = cfg.lm.n_layer + len(cfg.lm.cross_layers)
+    assert dec.kernel_calls == [per_step] * steps
+    assert decode_attention.launches() - before == 2 * steps * per_step
     replayed = model.narrate(video, torch.Generator(cuda_device).manual_seed(21))
     torch.cuda.synchronize()
-    steps = cfg.max_text_length - 1
     for p in range(steps):
         torch.testing.assert_close(seen[steps + p], seen[p], rtol=0, atol=0, msg=f"step {p}")
     assert torch.equal(eager, replayed)

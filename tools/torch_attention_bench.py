@@ -22,6 +22,18 @@ reached, from the kernel's device time in a ``torch.profiler`` trace
 measure the wrapper's host time where it exceeds the kernel's); K4 with its
 route (``ops.act_quant.layer_norm_plan``).
 
+Decode attention (K8, the narrator's shapes, bf16 seeded N(0, 1)): the self
+mode at 640 sequences x 25 heads over 1, 33 and 77 of 77 cached positions
+(the query a view of ``c_attn``'s packed rows, as ``models/gpt2.py`` has
+it) and the cross mode at 64 clips x 10 rows over 256 latents, each
+through ``ops.decode_attention``'s route, its plain version and the
+``F.scaled_dot_product_attention`` call the decode step made before K8
+(``library_ms``, with its device time ``library_device_ms``), beside its
+bound (``ops.bounds.decode_attention_bound_ms``) and its cut
+(``decode_attention.plan``). The 1- and 33-key caches fit in the 50 MB L2,
+so repeated calls read them warm; the 77-key one (315 MB) and the cross
+cache (105 MB) do not.
+
 One JSON line per (kernel, shape), after the card's ``nvidia-smi`` name and
 power limit.
 
@@ -49,10 +61,12 @@ from torch import nn  # noqa: E402
 
 import chip_smoke  # noqa: E402
 from helping_hand_for_egocentric_videos_torch.ops import act_quant as aq  # noqa: E402
+from helping_hand_for_egocentric_videos_torch.ops import decode_attention as dec  # noqa: E402
 from helping_hand_for_egocentric_videos_torch.ops import divided_attention as da  # noqa: E402
 from helping_hand_for_egocentric_videos_torch.ops._build import library  # noqa: E402
 from helping_hand_for_egocentric_videos_torch.ops.bounds import (  # noqa: E402
     attention_bound_ms,
+    decode_attention_bound_ms,
     rows_bound_ms,
     rows_bytes,
 )
@@ -66,6 +80,9 @@ CASES = (  # (kernel, mode, quant_out, head_grid, B, T)
     ("K2", "time", False, False, 2, 128), ("K6", "time", False, True, 1, 128), ("K6", "time", False, True, 2, 128),
 )
 ROW_CASES = (("K4", 1024, 14), ("K5", 4096, 12))  # (kernel, D, f32 ops a value)
+# (mode, sequences or clips, keys): the narrator's 640 sequences x 25 heads, 64 clips x 10 rows
+DECODE_CASES = (("self", 640, 1), ("self", 640, 33), ("self", 640, 77), ("cross", 64, 256))
+DECODE_H, DECODE_DH, DECODE_S, DECODE_R = 25, 64, 77, 10
 
 
 def _plan_of(lib: str, symbol: str, plan_fn, *args):
@@ -154,11 +171,57 @@ def bench_rows(args, card, peaks):
         torch.cuda.empty_cache()
 
 
+def bench_decode(args, card, peaks):
+    if args.kernels and "K8" not in args.kernels:
+        return
+    h, dh = DECODE_H, DECODE_DH
+    gen = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED + 3)
+    for mode, b, keys in DECODE_CASES:
+        if mode == "self":
+            n = b
+            q = torch.randn(n, 3 * h * dh, generator=gen, device="cuda").to(torch.bfloat16).view(n, 3, h, dh)[:, 0]
+            kv = torch.randn(2, n, h, DECODE_S, dh, generator=gen, device="cuda").to(torch.bfloat16)
+            k, v = kv[0], kv[1]
+            runs = {
+                "ms": lambda: dec.self_attention(q, k, v, keys),
+                "plain_ms": lambda: dec.self_attention_ref(q, k, v, keys),
+                "library_ms": lambda: F.scaled_dot_product_attention(q[:, :, None], k[:, :, :keys], v[:, :, :keys]),
+            }
+            bound_ms, bound_by = decode_attention_bound_ms("self", n, h, keys, dh, "bfloat16", peaks)
+            plan = dec.plan("self")
+        else:
+            n = b * DECODE_R
+            q = torch.randn(n, h * dh, generator=gen, device="cuda").to(torch.bfloat16).view(n, h, dh)
+            kv = torch.randn(2, b, h, keys, dh, generator=gen, device="cuda").to(torch.bfloat16)
+            k, v = kv[0], kv[1]
+            qb = q.view(b, DECODE_R, h, dh).transpose(1, 2)
+            runs = {
+                "ms": lambda: dec.cross_attention(q, k, v, DECODE_R),
+                "plain_ms": lambda: dec.cross_attention_ref(q, k, v, DECODE_R),
+                "library_ms": lambda: F.scaled_dot_product_attention(qb, k, v).transpose(1, 2).reshape(n, -1),
+            }
+            bound_ms, bound_by = decode_attention_bound_ms("cross", n, h, keys, dh, "bfloat16", peaks, r=DECODE_R)
+            plan = dec.plan("cross", keys)
+        times = _times(runs, args.iters, args.repeat)
+        windows = [_window(runs["ms"], args.iters) for _ in range(args.repeat)]
+        library = [_window(runs["library_ms"], args.iters) for _ in range(args.repeat)]
+        ms = min(w["device_ms"] for w in windows)
+        print(json.dumps({"metric": "decode_attention_timing", "kernel": "K8", "mode": mode, "rows": n, "H": h,
+                          "dh": dh, "keys": keys, "card": card, **{key: min(t) for key, t in times.items()},
+                          "all": times, "device_ms": ms, "device_all": [w["device_ms"] for w in windows],
+                          "launches_a_call": windows[0]["launches_a_call"],
+                          "library_device_ms": min(w["device_ms"] for w in library),
+                          "library_launches_a_call": library[0]["launches_a_call"], "bound_ms": bound_ms,
+                          "bound_by": bound_by, "bound_share": bound_ms / ms, "plan": plan}), flush=True)
+        del q, kv, k, v, runs
+        torch.cuda.empty_cache()
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--iters", type=int, default=50)
     p.add_argument("--repeat", type=int, default=3)
-    p.add_argument("--kernels", nargs="*", default=None, help="time only these (K1 ... K6)")
+    p.add_argument("--kernels", nargs="*", default=None, help="time only these (K1 ... K6, K8)")
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_attention_bench: no CUDA device; it measures the card only")
@@ -168,6 +231,7 @@ def main():
     peaks = peaks_for(torch.cuda.get_device_name(0))
     bench_attention(args, card, peaks)
     bench_rows(args, card, peaks)
+    bench_decode(args, card, peaks)
 
 
 if __name__ == "__main__":
