@@ -64,7 +64,9 @@ failed check raises and the script exits non-zero:
    own (the port's int8 matmul is ``torch._int_mm``).
    Between K5 and the train shapes, the narrator's sampler kernel (K7,
    ``phase_sampler``) on seeded logits of GPT-2's scale at (640, 50257),
-   peaked and flat, and (640, 97), T 0.7, top-p 0.95: the kept sets
+   peaked and flat, (640, 97), and Kimi-VL's (640, 163840) on its wide
+   route, peaked and flat, T 0.7, top-p 0.95, each call's launch read back
+   (the counter set to 0 just before): the kept sets
    parting from the plain version's only where a token's mass above lies
    within 1e-5 of top-p (sums in another order), 99.9% of the draws in the
    plain nucleus, 99% of the ids equal to the plain version's on the same
@@ -87,6 +89,18 @@ failed check raises and the script exits non-zero:
    K8) and the bound of ``ops/bounds.decode_attention_bound_ms``, and each
    mode's cut and ptxas line. ``python3 chip_smoke.py --decode-attention``
    runs phases 1-2 and this alone.
+   Then Kimi-VL's merged latent softmax (K9, ``phase_latent_softmax``) at
+   its decode step's 10240 rows (64 clips x 10 sequences x 16 heads) over
+   a prefix of 600 scores and a tail of 1, 33 and 77, scores seeded 20 N(0,
+   1) at scale 1/sqrt(192): against its plain version (within one bf16
+   rounding, rtol 2^-8 atol 1e-6), the same bits twice, the launches read
+   back (the counter set to 0 just before); then its time (profiler and
+   events) beside the plain version's, the library route's
+   (``library_ms``: ``torch.softmax`` of one (rows, 600 + t) f32 buffer and
+   the cast to bf16; ``library_cat_ms``: the same with the buffer made by
+   ``torch.cat`` of the two) and the bound of
+   ``ops/bounds.latent_softmax_bound_ms``. ``python3 chip_smoke.py
+   --latent-softmax`` runs phases 1-2 and this alone.
 5. serve: the full-width TimeSformer-L (16 frames) + object decoder from
    seeded random weights behind ``ServingEngine`` and the HTTP server on
    127.0.0.1; text, video, similarity and health requests from several
@@ -277,8 +291,8 @@ failed check raises and the script exits non-zero:
    and the same picks but at near-ties.
 
 Then one ``{"kernels": [...]}`` line, each tower kernel's launches summed
-over phases 5, 6, 10, 12-20, 22, 25 and 26, then K8's entry with its
-launches in its own phase, and, last, ``{"ok": true, "device":
+over phases 5, 6, 10, 12-20, 22, 25 and 26, then K7's, K8's and K9's
+entries with their launches in their own phases, and, last, ``{"ok": true, "device":
 {...}}``. Time
 attention is zero-initialised in the model (its qkv feeds the kernel
 zeros), so the smoke gives its weights seeded N(0, 0.02) values.
@@ -309,6 +323,7 @@ import numpy as np
 from helping_hand_for_egocentric_videos_torch.ops.bounds import (
     attention_bound_ms,
     decode_attention_bound_ms,
+    latent_softmax_bound_ms,
     rows_bound_ms,
     rows_bytes,
     sampler_bound_ms,
@@ -947,8 +962,10 @@ def phase_int8_kernels(device, peaks):
 
 
 # (rows, V, logits): the narrator's 64 clips x 10 sequences over GPT-2's vocabulary, peaked as a trained
-# model's or flat as the benchmark's seeded one's (a nucleus of tens of thousands); the tiny vocabulary
-SAMPLER_SHAPES = ((640, 50257, "peaked"), (640, 50257, "flat"), (640, 97, "peaked"))
+# model's or flat as the benchmark's seeded one's (a nucleus of tens of thousands); the tiny vocabulary;
+# Kimi-VL's 163840 words, on the kernel's wide route
+SAMPLER_SHAPES = ((640, 50257, "peaked"), (640, 50257, "flat"), (640, 97, "peaked"), (640, 163840, "peaked"),
+                  (640, 163840, "flat"))
 SAMPLER_KERNEL = "nucleus_sample_kernel"
 
 
@@ -996,10 +1013,11 @@ def _parent_sample_next(logits, temperature, top_p, generator):
 
 
 def phase_sampler(device, peaks, ptxas=None) -> dict:
-    """The narrator's sampler kernel (K7) against its plain version: the
-    kept set (each row's edge), the draws on one seed, the 4-token
-    frequencies at n = 20000; then its time at (640, 50257) and (640, 97)
-    beside the plain version's, the sort route's and the bytes' bound."""
+    """The narrators' sampler kernel (K7) against its plain version: the
+    kept set (each row's edge), the draws on one seed, the call's launch,
+    the 4-token frequencies at n = 20000; then its time at each of
+    ``SAMPLER_SHAPES`` beside the plain version's, the sort route's and the
+    bytes' bound."""
     import torch
 
     from helping_hand_for_egocentric_videos_torch.ops import sampling
@@ -1011,19 +1029,22 @@ def phase_sampler(device, peaks, ptxas=None) -> dict:
         logits = sampler_logits(rows, v, kind, gen, device)
         seed = torch.randint(-(2 ** 63), 2 ** 63 - 1, (1,), generator=gen, device=device)
         thr = torch.empty(rows, device=device)
+        sampling.nucleus_sample.launches = 0
         ids = sampling.nucleus_sample(logits, temperature, top_p, seed, threshold=thr)
+        launched = sampling.nucleus_sample.launches
         torch.cuda.synchronize()
         cpu = logits.cpu()
         scores, edge = sampling.nucleus_threshold_ref(cpu, temperature, top_p)
         keep, want = scores >= thr.cpu()[:, None], scores >= edge[:, None]
         ids, want_ids = ids.cpu(), sampling.sample_next_ref(cpu, temperature, top_p, int(seed))
         r, differ = torch.arange(rows), keep != want
-        res = {"rows": rows, "V": v, "logits": kind, "edges_equal": float((thr.cpu() == edge).float().mean()),
+        res = {"rows": rows, "V": v, "logits": kind, "route": sampling.route(v), "launches": launched,
+               "edges_equal": float((thr.cpu() == edge).float().mean()),
                "kept_differ": int(differ.sum()), "nucleus_median": float(want.sum(-1).median()),
                "kept_differ_off_edge": int(((_mass_above(scores)[differ] - top_p).abs() >= 1e-5).sum()),
                "ids_in_plain_nucleus": float(want[r, ids].float().mean()),
                "ids_equal_plain": float((ids == want_ids).float().mean())}
-        res["ok"] = (res["kept_differ_off_edge"] == 0 and res["ids_in_plain_nucleus"] >= 0.999
+        res["ok"] = (launched == 1 and res["kept_differ_off_edge"] == 0 and res["ids_in_plain_nucleus"] >= 0.999
                      and res["ids_equal_plain"] >= 0.99)
         say("kernel-vs-plain", kernel="nucleus_sample", **res)
         if not res["ok"]:
@@ -1057,7 +1078,9 @@ def phase_sampler(device, peaks, ptxas=None) -> dict:
     say("kernel-vs-plain", kernel="nucleus_sample", distribution=dist)
     if not dist["ok"]:
         raise AssertionError(f"the sampler kernel's draws are off their distribution: {dist}")
-    report.update(distribution=dist, ptxas=(ptxas or {}).get("nucleus_sample"))
+    report.update(name="nucleus_sample", route="cuda", source=f"{REPO}/csrc/nucleus_sample.cu", replaces=None,
+                  kernels=[SAMPLER_KERNEL], launches=len(SAMPLER_SHAPES), distribution=dist,
+                  ptxas=(ptxas or {}).get("nucleus_sample"))
     say("sampler", ptxas=report["ptxas"])
     return report
 
@@ -1152,6 +1175,71 @@ def phase_decode_attention(device, peaks, ptxas=None) -> dict:
               "tolerance": "plain version rtol 2^-7 (atol 1e-5); relative gap to f32 SDPA <= bf16 SDPA's",
               "shapes": rows, "ptxas": (ptxas or {}).get("decode_attention")}
     say("decode-attention", launches=launches, ptxas=report["ptxas"])
+    return report
+
+
+# (prefix, tail): Kimi-VL's decode step, 64 clips x 10 sequences x 16 heads a row, over a clip's 600 prefix
+# positions and the sequence's first, middle and last tail lengths
+LATENT_SHAPES = ((600, 1), (600, 33), (600, 77))
+LATENT_ROWS, LATENT_SCALE = 10240, 192 ** -0.5
+LATENT_KERNEL = "latent_softmax_kernel"
+
+
+def phase_latent_softmax(device, peaks, ptxas=None) -> dict:
+    """Kimi-VL's merged latent softmax (K9) at its decode step's shapes:
+    against its plain version, the same bits twice, its launches counted;
+    then its time beside the plain version's, the library route's and the
+    bound."""
+    import torch
+
+    from helping_hand_for_egocentric_videos_torch.ops import latent_attention as la
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 9)
+    rows = []
+    for p, t in LATENT_SHAPES:
+        s_pre = 20 * torch.randn(LATENT_ROWS, p, generator=gen, device=device)
+        s_tail = 20 * torch.randn(LATENT_ROWS, t, generator=gen, device=device)
+        fn = partial(la.latent_softmax, s_pre, s_tail, LATENT_SCALE)
+        la.latent_softmax.launches = 0
+        got, again = fn(), fn()
+        launched = la.latent_softmax.launches
+        want = la.latent_softmax_ref(s_pre, s_tail, LATENT_SCALE, torch.float32)
+        torch.cuda.synchronize()
+        got_all, want_all = torch.cat(got, -1).float(), torch.cat(want, -1)
+        res = {"rows": LATENT_ROWS, "prefix": p, "tail": t, "launches_two_calls": launched,
+               "max_abs_err_vs_plain": float((got_all - want_all).abs().max()),
+               "worst_excess_over_rtol": float(((got_all - want_all).abs() - 2 ** -8 * want_all - 1e-6).amax()),
+               "bf16_equal_share": float((got_all == want_all.to(torch.bfloat16).float()).float().mean()),
+               "row_sum_err": float((got_all.sum(-1) - 1).abs().max()),
+               "same_bits": all(torch.equal(a, b) for a, b in zip(got, again))}
+        res["ok"] = launched == 2 and res["worst_excess_over_rtol"] <= 0 and res["same_bits"]
+        say("kernel-vs-plain", kernel="latent_softmax", **res)
+        if not res["ok"]:
+            raise AssertionError(f"the latent softmax kernel disagrees with its plain version: {res}")
+        events_ms = cuda_ms(fn, 20)
+        try:  # the kernel alone; a trace that lost a launch's event reads nothing
+            ms = device_ms(fn, 20, LATENT_KERNEL)
+        except RuntimeError as e:
+            say("kernel-timing", kernel="latent_softmax", trace=str(e))
+            ms = events_ms
+        # the library route: the two score products written into one buffer's slices, or concatenated
+        scores = torch.cat([s_pre, s_tail], -1)
+        bound_ms, bound_by = latent_softmax_bound_ms(LATENT_ROWS, p, t, peaks)
+        timing = {"rows": LATENT_ROWS, "prefix": p, "tail": t, "ms": ms, "events_ms": events_ms,
+                  "plain_ms": cuda_ms(partial(la.latent_softmax_ref, s_pre, s_tail, LATENT_SCALE, torch.bfloat16), 5),
+                  "library_ms": cuda_ms(lambda: torch.softmax(scores, -1).to(torch.bfloat16), 20),
+                  "library_cat_ms": cuda_ms(
+                      lambda: torch.softmax(torch.cat([s_pre, s_tail], -1), -1).to(torch.bfloat16), 20),
+                  "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": bound_ms / ms}
+        say("kernel-timing", kernel="latent_softmax", **timing)
+        rows.append({**res, **timing})
+        del s_pre, s_tail, got, again, want, got_all, want_all, scores
+        torch.cuda.empty_cache()
+    report = {"name": "latent_softmax", "route": "cuda", "source": f"{REPO}/csrc/latent_softmax.cu",
+              "replaces": None, "kernels": [LATENT_KERNEL], "launches": 2 * len(LATENT_SHAPES),
+              "tolerance": "plain version rtol 2^-8 atol 1e-6", "shapes": rows,
+              "ptxas": (ptxas or {}).get("latent_softmax")}
+    say("latent-softmax", ptxas=report["ptxas"])
     return report
 
 
@@ -3593,6 +3681,9 @@ def main():
     if sys.argv[1:2] == ["--decode-attention"]:  # the decode-attention kernel (K8) alone
         phase_decode_attention("cuda", peaks, ptxas)
         return
+    if sys.argv[1:2] == ["--latent-softmax"]:  # the latent softmax kernel (K9) alone
+        phase_latent_softmax("cuda", peaks, ptxas)
+        return
     report = phase_kernels("cuda", peaks)
     local = _time_local_heads("cuda", peaks)  # the model axis's K1/K2 shapes
     for row in local:
@@ -3600,6 +3691,7 @@ def main():
     report.update(phase_int8_kernels("cuda", peaks))
     report["sampler"] = phase_sampler("cuda", peaks, ptxas)
     report["decode_attention"] = phase_decode_attention("cuda", peaks, ptxas)
+    report["latent_softmax"] = phase_latent_softmax("cuda", peaks, ptxas)
     for check in _check_cell_shapes("cuda"):  # the batches of the benchmark's cells
         key = check["kernel"].removeprefix("divided_attention_")
         report[key if key in report else check["kernel"]].setdefault("cell_shapes", []).append(check)
@@ -3656,8 +3748,10 @@ def main():
             raise AssertionError(f"{report[key]['name']} was not launched on the main path")
         report[key]["launches"] = n
         report[key]["card"] = card
-    report["decode_attention"]["card"] = card  # its launches are its own phase's: the smoke narrates nothing
-    print(json.dumps({"kernels": [report[k] for k in (*counts, "decode_attention")]}), flush=True)
+    own = ("sampler", "decode_attention", "latent_softmax")  # launched in their own phases: no narration here
+    for key in own:
+        report[key]["card"] = card
+    print(json.dumps({"kernels": [report[k] for k in (*counts, *own)]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)
 

@@ -1,4 +1,7 @@
-"""CLI: narrate video clips with LaViLa's narrator (``models/narrator.py``).
+"""CLI: narrate video clips with a narrator (``models/narrator.py``): LaViLa's
+GPT-2 XL, or Kimi-VL-A3B's language model (``--model kimi_vl_a3b_tsf336``:
+latent attention over a per-clip prefix of 576 visual tokens and 24
+prompt ids, 64 routed experts).
 
 Every video under ``--data_dir`` (``--pattern``) is one clip:
 ``--num_frames`` frames spread evenly over it, read by the package's
@@ -10,11 +13,12 @@ the batch's index. The token ids go to one ``.npz``:
     ids (clips, R, max_text_length) int64, BOS first and EOS-padded;
     paths (clips,) the videos.
 
-No tokenizer turns ids into text here: GPT-2's vocabulary and merges are
-not in the repository. ``--weights`` takes a state dict in the model's own
-layout (``NarratorModel.state_dict()``); the released narrator checkpoint
-waits for its file and a converter (PERF.md, section 7). Without it the
-weights are seeded random ones, so the ids are noise.
+No tokenizer turns ids into text here: neither GPT-2's nor Kimi-VL's
+vocabulary is in the repository. ``--weights`` takes a state dict in the
+model's own layout (its ``state_dict()``); the released checkpoints wait
+for their files and a converter (PERF.md, section 7). Without it the
+weights are seeded random ones, so the ids are noise; Kimi-VL's 24 prompt
+ids are seeded from ``--seed`` too.
 
 Example:
     python -m helping_hand_for_egocentric_videos_torch.cli.narrate \\
@@ -61,7 +65,9 @@ def main(argv=None):
     p.add_argument("--pattern", default="**/*.mp4*", help="glob under --data_dir")
     p.add_argument("--out", required=True, help="the .npz of token ids")
     p.add_argument("--model", default="vclm_openai_timesformer_large_336px_gpt2_xl",
-                   choices=["vclm_openai_timesformer_large_336px_gpt2_xl", "vclm_tiny"])
+                   choices=["vclm_openai_timesformer_large_336px_gpt2_xl", "vclm_tiny", "kimi_vl_a3b_tsf336",
+                            "kimi_vl_tiny"],
+                   help="LaViLa's narrator (GPT-2 XL) or Kimi-VL-A3B's language model behind the same tower")
     p.add_argument("--weights", default="",
                    help="a state dict in NarratorModel's layout; default: seeded random weights")
     p.add_argument("--batch", type=int, default=64, help="clips a narrated batch")

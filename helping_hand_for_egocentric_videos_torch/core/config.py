@@ -87,12 +87,15 @@ class ParallelCfg:
 
 @dataclass
 class NarratorCfg:
-    """LaViLa's narrator (``models/narrator.py``): its model preset, the
+    """A narrator (``models/narrator.py``): its model preset, the
     generation settings of ``demo_narrator.py``, its weights and type. A
     tree of its own, not a section of ``ExperimentConfig``, whose fields
-    are the JAX package's."""
+    are the JAX package's. Presets: LaViLa's
+    ``vclm_openai_timesformer_large_336px_gpt2_xl`` and ``vclm_tiny``;
+    Kimi-VL-A3B's language model behind the 336 px TimeSformer,
+    ``kimi_vl_a3b_tsf336`` and ``kimi_vl_tiny``."""
 
-    model: str = "vclm_openai_timesformer_large_336px_gpt2_xl"  # | vclm_tiny
+    model: str = "vclm_openai_timesformer_large_336px_gpt2_xl"  # | vclm_tiny | kimi_vl_a3b_tsf336 | kimi_vl_tiny
     num_return_sequences: int = 10
     max_text_length: int = 77
     temperature: float = 0.7

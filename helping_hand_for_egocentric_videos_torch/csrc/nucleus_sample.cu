@@ -69,6 +69,16 @@
 //     every candidate in one bin), each digit chosen by the same rule with
 //     the mass above carried down. The last round leaves one key: t*.
 //   - b*'s columns at or above t* race; a block argmax ends the row.
+//
+// Wide rows (Kimi-VL's 163840 words: 655 KB of f32, beyond a block's shared
+// memory): the same kernel with the row left in device memory (the
+// template's kStaged false), every pass reading it through L2 and dividing
+// by the temperature again (the same IEEE division, so the same scores),
+// and 16 histograms of 2 warps each, so that no 32-bit half of a bin's mass
+// passes 2^32 (a histogram sees at most 12288 columns at kMaxWideVocab).
+// Rows up to kMaxVocab keep the staged route. Its bound at (640, 163840):
+// 419.4 MB, 125.2 us at 3.35 TB/s; the row is read three times (the max,
+// round 1, the split) and b*'s listed columns again.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -81,15 +91,15 @@ using u64 = unsigned long long;
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
 constexpr int kBins = 256;
-constexpr int kHists = kWarps / 4;         // round 1's histograms, one to 4 warps
+constexpr int kMaxHists = 16;              // round 1's histograms: 8 (staged) or 16 (wide)
 constexpr int kQueue = 96;                 // a warp's queue of quads holding kept columns
-constexpr int kListCap = kHists * kBins * 2 - kWarps * kQueue;  // b*'s columns listed (ints)
 constexpr int kWindow = 128;               // columns a warp scans at once in the split pass
 constexpr int kGroups = 4;                 // cp.async commit groups of the staging
 constexpr float kSpan = 32.f;              // the widest span of round 1's linear bins
 constexpr float kFix = 0x1p36f;            // a weight's fixed-point scale
 constexpr int kLoBits = 18;                // round 1 adds a weight's count in two 18-bit halves
-constexpr int kMaxVocab = 53248;           // ops/sampling.py's MAX_VOCAB
+constexpr int kMaxVocab = 53248;           // ops/sampling.py's MAX_VOCAB: the staged route's widest row
+constexpr int kMaxWideVocab = 196608;      // ops/sampling.py's MAX_WIDE_VOCAB: the wide route's
 constexpr int kMaxDevices = 64;
 
 // Order-preserving 32-bit key of a float (-0 taken as +0): a greater float
@@ -202,7 +212,7 @@ struct Shared {
   float red_max[kWarps], red_min[kWarps];
   float race_val[kWarps];
   int race_col[kWarps];
-  u64 above, over[kHists];
+  u64 above, over[kMaxHists];
   double target;
   float top, inv;
   int bstar, count;
@@ -221,19 +231,24 @@ struct Best {
   }
 };
 
+// The row's floats before shared memory's histograms: all of it staged, none wide.
+__host__ __device__ constexpr int staged_floats(bool staged, int v) { return staged ? (v + 3 + 3) & ~3 : 0; }
+
+template <bool kStaged, int kHists>
 __global__ void __launch_bounds__(kThreads, 1)
 nucleus_sample_kernel(const float* __restrict__ logits, long long* __restrict__ out,
                       float* __restrict__ threshold_out, const long long* __restrict__ seed,
                       int rows, int v, float temperature, float top_p) {
+  constexpr int kListCap = kHists * kBins * 2 - kWarps * kQueue;  // b*'s columns listed (ints)
   extern __shared__ __align__(16) float smem[];
   __shared__ Shared sh;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const uint64_t sd = static_cast<uint64_t>(*seed);
   const uint32_t k0 = static_cast<uint32_t>(sd), k1 = static_cast<uint32_t>(sd >> 32);
 
-  // layout: [row (v + 3 floats, rounded to 4)] [round 1's histograms; later
-  // b*'s list and the warps' queues] [the block histogram]
-  u64* hw = reinterpret_cast<u64*>(smem + ((v + 3 + 3) & ~3));
+  // layout: [row (v + 3 floats, rounded to 4), staged only] [round 1's
+  // histograms; later b*'s list and the warps' queues] [the block histogram]
+  u64* hw = reinterpret_cast<u64*>(smem + staged_floats(kStaged, v));
   u64* hb = hw + kHists * kBins;
   int* list = reinterpret_cast<int*>(hw);
   int* queue = list + kListCap + warp * kQueue;  // entries: quad << 4 | its kept columns' bits
@@ -242,6 +257,11 @@ nucleus_sample_kernel(const float* __restrict__ logits, long long* __restrict__ 
     const float* g = logits + static_cast<long long>(row) * v;
     const int mis = static_cast<int>((reinterpret_cast<uintptr_t>(g) >> 2) & 3);
     float* srow = smem + mis;  // srow[head] lies on a 16-byte boundary, as g + head does
+    // column i's score: staged, as divided in shared memory; wide, divided again
+    auto score = [&](int i) -> float {
+      if constexpr (kStaged) return srow[i];
+      else return __ldg(g + i) / temperature;
+    };
     __syncthreads();  // the previous row is done with shared memory
 
     // ---- staging, the division, the max and the least finite score
@@ -250,13 +270,15 @@ nucleus_sample_kernel(const float* __restrict__ logits, long long* __restrict__ 
     const int tail0 = head + 4 * chunks;
     const int iters = (chunks + kThreads - 1) / kThreads;
     const int per_group = (iters + kGroups - 1) / kGroups;
+    if constexpr (kStaged) {
 #pragma unroll
-    for (int q = 0; q < kGroups; ++q) {
-      for (int j = q * per_group; j < min((q + 1) * per_group, iters); ++j) {
-        const int c = j * kThreads + tid;
-        if (c < chunks) cp_async16(srow + head + 4 * c, g + head + 4 * c);
+      for (int q = 0; q < kGroups; ++q) {
+        for (int j = q * per_group; j < min((q + 1) * per_group, iters); ++j) {
+          const int c = j * kThreads + tid;
+          if (c < chunks) cp_async16(srow + head + 4 * c, g + head + 4 * c);
+        }
+        cp_async_commit();
       }
-      cp_async_commit();
     }
     for (int i = tid; i < kHists * kBins; i += kThreads) hw[i] = 0ull;
     if (tid < kHists) sh.over[tid] = 0ull;
@@ -279,15 +301,15 @@ nucleus_sample_kernel(const float* __restrict__ logits, long long* __restrict__ 
         }
       }
     };
-    cp_async_wait<3>();
-    group(0);
-    cp_async_wait<2>();
-    group(1);
-    cp_async_wait<1>();
-    group(2);
-    cp_async_wait<0>();
-    group(3);
-    {
+    if constexpr (kStaged) {
+      cp_async_wait<3>();
+      group(0);
+      cp_async_wait<2>();
+      group(1);
+      cp_async_wait<1>();
+      group(2);
+      cp_async_wait<0>();
+      group(3);
       int i = -1;
       if (tid < head) i = tid;
       else if (tid >= 64 && tid < 64 + (v - tail0)) i = tail0 + tid - 64;
@@ -295,6 +317,11 @@ nucleus_sample_kernel(const float* __restrict__ logits, long long* __restrict__ 
         float x = g[i];
         take(x);
         srow[i] = x;
+      }
+    } else {
+      for (int i = tid; i < v; i += kThreads) {
+        float x = __ldg(g + i);
+        take(x);
       }
     }
 #pragma unroll
@@ -331,15 +358,16 @@ nucleus_sample_kernel(const float* __restrict__ logits, long long* __restrict__ 
     }
 
     // ---- round 1: mass histograms over the linear bins. A weight's count
-    // (< 2^37) is added as two halves, each by a native 32-bit atomic (a
+    // (<= 2^36) is added as two halves, each by a native 32-bit atomic (a
     // float or 64-bit one is a compare-and-swap loop): a histogram of 4
-    // warps sees at most 6656 columns, so no half's sum passes 2^32.
+    // warps (staged) sees at most 6656 columns, one of 2 (wide) at most
+    // 12288, so no half's sum passes 2^32.
     {
       unsigned* lo = reinterpret_cast<unsigned*>(hw) + (warp / (kWarps / kHists)) * 2 * kBins;
       unsigned* hi = lo + kBins;
       u64 over = 0;
       for (int i = tid; i < v; i += kThreads) {
-        const float s = srow[i];
+        const float s = score(i);
         const u64 w = weight(s, m);
         const int b = bin_of(s, m, inv);
         if (b < kBins - 1) {
@@ -396,7 +424,7 @@ nucleus_sample_kernel(const float* __restrict__ logits, long long* __restrict__ 
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int c0 = 4 * (e0 >> 4) + e;
-        const float r0 = race_key(srow[c0], word(x0, e));
+        const float r0 = race_key(score(c0), word(x0, e));
         if ((e0 >> e) & 1) best.offer(r0, c0);
       }
     };
@@ -406,7 +434,7 @@ nucleus_sample_kernel(const float* __restrict__ logits, long long* __restrict__ 
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int c0 = 4 * (e0 >> 4) + e, c1 = 4 * (e1 >> 4) + e;
-        const float r0 = race_key(srow[c0], word(x0, e)), r1 = race_key(srow[c1], word(x1, e));
+        const float r0 = race_key(score(c0), word(x0, e)), r1 = race_key(score(c1), word(x1, e));
         if ((e0 >> e) & 1) best.offer(r0, c0);
         if ((e1 >> e) & 1) best.offer(r1, c1);
       }
@@ -418,7 +446,7 @@ nucleus_sample_kernel(const float* __restrict__ logits, long long* __restrict__ 
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
           const int c = c0 + 32 * k + lane;
-          const float s = c < v ? srow[c] : -INFINITY;
+          const float s = c < v ? score(c) : -INFINITY;
           const int b = s == -INFINITY ? kBins : bin_of(s, m, inv);
           keep[k] = __ballot_sync(0xffffffffu, b < bstar);
           const bool in = b == bstar;
@@ -480,7 +508,7 @@ nucleus_sample_kernel(const float* __restrict__ logits, long long* __restrict__ 
       const int items = listed ? n : v;
       for (int t = tid; t < items; t += kThreads) {
         const int i = listed ? list[t] : t;
-        const float s = srow[i];
+        const float s = score(i);
         if (!listed && (s == -INFINITY || bin_of(s, m, inv) != bstar)) continue;
         const unsigned k = order_key(s);
         if ((static_cast<u64>(k) >> hi) != (static_cast<u64>(prefix) >> hi)) continue;
@@ -506,7 +534,7 @@ nucleus_sample_kernel(const float* __restrict__ logits, long long* __restrict__ 
       const int items = listed ? n : v;
       for (int t = tid; t < items; t += kThreads) {
         const int c = listed ? list[t] : t;
-        const float s = srow[c];
+        const float s = score(c);
         if (!listed && (s == -INFINITY || bin_of(s, m, inv) != bstar)) continue;
         if (order_key(s) < kstar) continue;
         const uint4 x = philox(static_cast<uint32_t>(c >> 2), static_cast<uint32_t>(row), k0, k1);
@@ -538,9 +566,42 @@ nucleus_sample_kernel(const float* __restrict__ logits, long long* __restrict__ 
   }
 }
 
-size_t smem_bytes(int v) {
-  return static_cast<size_t>((v + 3 + 3) & ~3) * sizeof(float) +
-         static_cast<size_t>(kHists * kBins + kBins) * sizeof(u64);
+size_t smem_bytes(bool staged, int hists, int v) {
+  return static_cast<size_t>(staged_floats(staged, v)) * sizeof(float) +
+         static_cast<size_t>(hists * kBins + kBins) * sizeof(u64);
+}
+
+// One route's launch: persistent blocks, each walking the rows blockIdx.x,
+// + gridDim.x, ...; the dynamic shared memory allowed once a device.
+template <bool kStaged, int kHists>
+cudaError_t launch(const void* logits, void* out, void* threshold, const void* seed, long long rows, int v,
+                   float temperature, float top_p, cudaStream_t stream) {
+  static size_t granted[kMaxDevices];
+  static int sms[kMaxDevices];
+  auto kernel = nucleus_sample_kernel<kStaged, kHists>;
+  int dev = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (sms[dev] == 0 &&
+      (err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  const size_t bytes = smem_bytes(kStaged, kHists, v);
+  if (bytes > granted[dev]) {
+    if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    static_cast<int>(bytes))) != cudaSuccess)
+      return err;
+    granted[dev] = bytes;
+  }
+  int per_sm = 0;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, bytes)) != cudaSuccess)
+    return err;
+  const long long slots = static_cast<long long>(sms[dev]) * max(per_sm, 1);
+  const long long grid = rows < slots ? rows : slots;
+  kernel<<<static_cast<unsigned>(grid), kThreads, bytes, stream>>>(
+      static_cast<const float*>(logits), static_cast<long long*>(out), static_cast<float*>(threshold),
+      static_cast<const long long*>(seed), static_cast<int>(rows), v, temperature, top_p);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -548,38 +609,11 @@ size_t smem_bytes(int v) {
 extern "C" int hh_nucleus_sample(const void* logits, void* out, void* threshold, const void* seed,
                                  long long rows, int v, float temperature, float top_p,
                                  void* stream) {
-  if (v < 1 || v > kMaxVocab || rows < 0 || rows > 0x7fffffffLL || !(temperature > 0.f))
+  if (v < 1 || v > kMaxWideVocab || rows < 0 || rows > 0x7fffffffLL || !(temperature > 0.f))
     return static_cast<int>(cudaErrorInvalidValue);
   if (rows == 0) return 0;
-  static size_t granted[kMaxDevices];  // dynamic shared memory already allowed, per device
-  static int sms[kMaxDevices];
-  int dev = 0;
-  cudaError_t err;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
-  if (dev < 0 || dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
-  if (sms[dev] == 0 &&
-      (err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return static_cast<int>(err);
-  const size_t bytes = smem_bytes(v);
-  if (bytes > granted[dev]) {
-    if ((err = cudaFuncSetAttribute(nucleus_sample_kernel,
-                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    static_cast<int>(bytes))) != cudaSuccess)
-      return static_cast<int>(err);
-    granted[dev] = bytes;
-  }
-  int per_sm = 0;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, nucleus_sample_kernel, kThreads,
-                                                           bytes)) != cudaSuccess)
-    return static_cast<int>(err);
-  // persistent blocks: each walks the rows blockIdx.x, + gridDim.x, ...
-  const long long grid = rows < static_cast<long long>(sms[dev]) * max(per_sm, 1)
-                             ? rows
-                             : static_cast<long long>(sms[dev]) * max(per_sm, 1);
-  nucleus_sample_kernel<<<static_cast<unsigned>(grid), kThreads, bytes,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(logits), static_cast<long long*>(out),
-      static_cast<float*>(threshold), static_cast<const long long*>(seed), static_cast<int>(rows), v,
-      temperature, top_p);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (v <= kMaxVocab)
+    return static_cast<int>(launch<true, 8>(logits, out, threshold, seed, rows, v, temperature, top_p, st));
+  return static_cast<int>(launch<false, kMaxHists>(logits, out, threshold, seed, rows, v, temperature, top_p, st));
 }

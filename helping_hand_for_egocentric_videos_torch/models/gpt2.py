@@ -38,16 +38,13 @@ raises on anything else (the self mode reads the query rows in place from
 both write the rows ``c_proj`` takes); on the CPU
 ``F.scaled_dot_product_attention``.
 
-``Decoder`` holds one batch shape's cache and runs its decode steps: on
-the card, once a batch has run them eagerly (the warm-up: cuBLAS's plans
-and the kernels' first launches), each position's step is recorded into
-a CUDA graph over the same cache and replayed for every later batch, one
-launch a step in place of about 1200 (its shapes never change: ``pos`` is
-the graph's). The recording is skipped while a torch profiler runs; the
-replays are not. A graph replays the same kernels on the same inputs, so
-the same logits. ``Decoder.kernel_calls`` keeps how many K8 launches each
-graph holds, and a replay adds them to ``hh.narrate.decode_attn_kernel_calls``
-as the eager step's wrapper calls do.
+``models/step_graphs.py::Decoder`` holds one batch shape's cache and runs
+``decode_step`` over it: on the card, once a batch has run the steps
+eagerly, each position's step is recorded into a CUDA graph over the same
+cache and replayed for every later batch, one launch a step in place of
+about 1200. The narrator adds the K8 launches a replayed batch's graphs
+hold to ``hh.narrate.decode_attn_kernel_calls``, as the eager step's
+wrapper calls do.
 
 Departures from the published forward, none of them in its arithmetic:
 the cache layouts put the layer first ((layers, 2, N, H, S, dh) and
@@ -65,12 +62,10 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.autograd import profiler as _autograd_profiler
-
 from ..ops import decode_attention
-from ..utils.profiling import count, span
+from ..utils.profiling import span
 
-__all__ = ["Decoder", "GPT2Config", "GatedGPT2", "NarrateCache", "conv1d", "decode_step", "lm_logits",
+__all__ = ["GPT2Config", "GatedGPT2", "NarrateCache", "conv1d", "decode_step", "lm_logits",
            "prefill_cross"]
 
 
@@ -282,63 +277,3 @@ def decode_step(lm: GatedGPT2, cfg: GPT2Config, cache: NarrateCache, ids, pos: i
             j += 1
         x = x + _mlp(blk, _ln(blk.ln_2, x, cfg))
     return lm_logits(lm, _ln(tr.ln_f, x, cfg))
-
-
-class Decoder:
-    """The decode steps of batches of one shape over one ``NarrateCache``
-    (module docstring): ``step(ids, pos)`` runs ``decode_step`` eagerly, or
-    replays position ``pos``'s CUDA graph once ``capture`` has recorded
-    them. The logits a replay returns live in the decoder's own buffer,
-    overwritten by the next step."""
-
-    def __init__(self, lm: GatedGPT2, cfg: GPT2Config, cache: NarrateCache):
-        self.lm, self.cfg, self.cache = lm, cfg, cache
-        self.storage = _storage(lm)
-        self.graphs: list = []
-        self.kernel_calls: list = []  # decode-attention kernel launches each graph holds
-        self._ids = self._logits = None
-
-    def matches(self, lm: GatedGPT2, clips: int, r: int, length: int, latents: int, device) -> bool:
-        kv, cross, device = self.cache.kv, self.cache.cross, torch.device(device)
-        same_device = kv.device.type == device.type and device.index in (None, kv.device.index)
-        return (self.lm is lm and self.storage == _storage(lm) and same_device
-                and (kv.shape[2], kv.shape[4], cross.shape[2], cross.shape[4]) == (clips * r, length, clips, latents))
-
-    def step(self, ids, pos: int):
-        if pos < len(self.graphs):
-            self._ids.copy_(ids)
-            self.graphs[pos].replay()
-            count("hh.narrate.decode_attn_kernel_calls", self.kernel_calls[pos])
-            return self._logits
-        return decode_step(self.lm, self.cfg, self.cache, ids, pos)
-
-    def can_capture(self) -> bool:
-        return self.cache.kv.is_cuda and not self.graphs and not _autograd_profiler._is_profiler_enabled
-
-    def capture(self, steps: int):
-        """Record positions ``0 .. steps - 1`` on a side stream, one graph
-        each, sharing one memory pool (they replay in the order recorded)."""
-        device = self.cache.kv.device
-        n = self.cache.kv.shape[2]
-        self._ids = torch.zeros(n, dtype=torch.long, device=device)
-        self._logits = torch.empty(n, self.cfg.vocab_size, dtype=torch.float32, device=device)
-        pool = torch.cuda.graph_pool_handle()
-        current = torch.cuda.current_stream(device)
-        side = torch.cuda.Stream(device)
-        side.wait_stream(current)
-        graphs, calls = [], []
-        with torch.cuda.stream(side):
-            for pos in range(steps):
-                g = torch.cuda.CUDAGraph()
-                before = decode_attention.launches()
-                # thread_local: a loader's threads may allocate while this one records
-                with torch.cuda.graph(g, pool=pool, stream=side, capture_error_mode="thread_local"):
-                    self._logits.copy_(decode_step(self.lm, self.cfg, self.cache, self._ids, pos))
-                graphs.append(g)
-                calls.append(decode_attention.launches() - before)
-        current.wait_stream(side)
-        self.graphs, self.kernel_calls = graphs, calls
-
-
-def _storage(module) -> tuple:
-    return tuple(t.data_ptr() for t in module.parameters())

@@ -19,12 +19,14 @@ quotes them.
 - ``decode_attention_bound_ms``: the narrator's decode attention over a
   cache (K8, both modes); ``decode_attention_work`` its bytes and
   operations.
+- ``latent_softmax_bound_ms``: Kimi-VL's merged softmax over a prefix's and
+  a tail's scores (K9); ``latent_softmax_bytes`` the bytes it moves.
 """
 
 from __future__ import annotations
 
-__all__ = ["attention_bound_ms", "decode_attention_bound_ms", "decode_attention_work", "rows_bound_ms", "rows_bytes",
-           "sampler_bound_ms", "sampler_bytes"]
+__all__ = ["attention_bound_ms", "decode_attention_bound_ms", "decode_attention_work", "latent_softmax_bound_ms",
+           "latent_softmax_bytes", "rows_bound_ms", "rows_bytes", "sampler_bound_ms", "sampler_bytes"]
 
 # bytes a value by type name
 _SIZE = {"float32": 4, "bfloat16": 2}
@@ -95,3 +97,14 @@ def decode_attention_bound_ms(mode: str, rows: int, heads: int, keys: int, dh: i
                               r: int = 1) -> tuple[float, str]:
     nbytes, ops = decode_attention_work(mode, rows, heads, keys, dh, dtype, r)
     return _bound(nbytes, ops, peaks, dtype)
+
+
+def latent_softmax_bytes(rows: int, p: int, t: int) -> int:
+    """Read a row's ``p`` + ``t`` f32 scores, write their bf16 probabilities."""
+    return rows * (p + t) * (4 + 2)
+
+
+def latent_softmax_bound_ms(rows: int, p: int, t: int, peaks) -> tuple[float, str]:
+    """The merged softmax's bytes over the memory rate: a few operations a
+    score, outside the tensor cores, take less."""
+    return 1e3 * latent_softmax_bytes(rows, p, t) / peaks["bytes"], "bytes"

@@ -26,10 +26,12 @@ masses: each weight ``exp(s - max)`` is counted in integer units of 2^-36,
 so every sum is exact, in any order:
 
 - a CUDA tensor: one launch of the hand-written kernel in
-  ``csrc/nucleus_sample.cu`` (``nucleus_sample``): the row staged in
-  shared memory, the edge found by a mass-weighted radix select, the race
-  over the kept tokens. Rows up to ``MAX_VOCAB`` tokens; nothing falls
-  back;
+  ``csrc/nucleus_sample.cu`` (``nucleus_sample``): the edge found by a
+  mass-weighted radix select, the race over the kept tokens. Rows up to
+  ``MAX_VOCAB`` tokens (GPT-2's 50257) are staged in shared memory; wider
+  ones, up to ``MAX_WIDE_VOCAB`` (Kimi-VL's 163840), take the same kernel
+  with the row read from device memory at each pass (``route``). Nothing
+  falls back;
 - a CPU tensor: the plain version (``nucleus_threshold_ref``,
   ``sample_next_ref``), the same arithmetic by a sort.
 
@@ -62,15 +64,27 @@ from ._build import library
 
 __all__ = [
     "MAX_VOCAB",
+    "MAX_WIDE_VOCAB",
     "nucleus_mask",
     "nucleus_threshold_ref",
     "philox_uniform",
     "sample_next_ref",
     "nucleus_sample",
     "sample_next",
+    "route",
 ]
 
 MAX_VOCAB = 53248  # the kernel holds a row in one block's shared memory (csrc/nucleus_sample.cu)
+MAX_WIDE_VOCAB = 196608  # the wide route: no 32-bit half of a histogram's bin passes 2^32
+
+
+def route(v: int) -> str:
+    """The kernel's route for rows of ``v`` tokens: "staged" (the row in
+    shared memory) up to ``MAX_VOCAB``, "wide" (the row in device memory)
+    up to ``MAX_WIDE_VOCAB``."""
+    if not 1 <= v <= MAX_WIDE_VOCAB:
+        raise ValueError(f"nucleus_sample takes rows of 1..{MAX_WIDE_VOCAB} tokens, got {v}")
+    return "staged" if v <= MAX_VOCAB else "wide"
 
 _M0, _M1, _W0, _W1 = 0xD2511F53, 0xCD9E8D57, 0x9E3779B9, 0xBB67AE85
 _U32 = 0xFFFFFFFF
@@ -183,8 +197,7 @@ def nucleus_sample(logits, temperature: float, top_p: float, seed, threshold=Non
     if logits.dim() != 2 or not logits.is_contiguous():
         raise ValueError(f"nucleus_sample takes contiguous (N, V) logits, got shape {tuple(logits.shape)}")
     n, v = logits.shape
-    if not 1 <= v <= MAX_VOCAB:
-        raise ValueError(f"nucleus_sample takes rows of 1..{MAX_VOCAB} tokens (one block's shared memory), got {v}")
+    route(v)
     if not temperature > 0:
         raise ValueError(f"nucleus_sample takes a positive temperature, got {temperature}")
     if seed.device != logits.device or seed.dtype != torch.int64 or seed.numel() != 1:

@@ -119,32 +119,42 @@ def build_models(cfg: ExperimentConfig, rng_seed: int = 0):
 
 
 def build_narrator(ncfg: NarratorCfg, rng_seed: int = 0, device=None):
-    """-> ``models.narrator.NarratorModel`` of the preset ``ncfg.model``, with
-    ``ncfg``'s generation settings, on ``device`` in ``ncfg.dtype``. With
-    ``ncfg.weights`` the state dict of that file, in the model's own layout
-    (its ``state_dict()``), cast tensor by tensor; else seeded random
-    weights. A released narrator checkpoint names its visual tower as
-    LaViLa's TimeSformer and stores ``lm_head`` apart; its conversion waits
-    for the file (PERF.md, section 7)."""
-    from ..models.narrator import NarratorConfig, NarratorModel, narrator_tiny_config
+    """-> the narrator of the preset ``ncfg.model``, with ``ncfg``'s
+    generation settings, on ``device`` in ``ncfg.dtype``: LaViLa's
+    ``models.narrator.NarratorModel`` or Kimi-VL-A3B's
+    ``KimiNarratorModel``. With ``ncfg.weights`` the state dict of that
+    file, in the model's own layout (its ``state_dict()``), cast tensor by
+    tensor; else seeded random weights (and, for Kimi-VL, seeded prompt
+    ids). A released checkpoint names its visual tower and its layers
+    otherwise; its conversion waits for the file (PERF.md, section 7)."""
+    from ..models.narrator import (KimiNarratorConfig, KimiNarratorModel, NarratorConfig, NarratorModel,
+                                   kimi_tiny_config, narrator_tiny_config)
 
     preset = {"vclm_openai_timesformer_large_336px_gpt2_xl": NarratorConfig,
-              "vclm_tiny": narrator_tiny_config}[ncfg.model]
+              "vclm_tiny": narrator_tiny_config,
+              "kimi_vl_a3b_tsf336": KimiNarratorConfig,
+              "kimi_vl_tiny": kimi_tiny_config}[ncfg.model]
     cfg = preset(num_return_sequences=ncfg.num_return_sequences, max_text_length=ncfg.max_text_length,
                  temperature=ncfg.temperature, top_p=ncfg.top_p)
-    if cfg.max_text_length > cfg.lm.n_positions:
-        raise ValueError(f"max_text_length {cfg.max_text_length} exceeds the model's {cfg.lm.n_positions} positions")
+    kimi = isinstance(cfg, KimiNarratorConfig)
+    positions = cfg.prefix_len + cfg.max_text_length if kimi else cfg.max_text_length
+    limit = cfg.lm.max_position_embeddings if kimi else cfg.lm.n_positions
+    if positions > limit:
+        raise ValueError(f"{positions} positions exceed the model's {limit}")
+    model_cls = KimiNarratorModel if kimi else NarratorModel
     device = resolve_device(device)
     dtype = getattr(torch, ncfg.dtype)
+    gen = torch.Generator(device).manual_seed(rng_seed)
     if ncfg.weights:
         sd = load_torch_state_dict(ncfg.weights)
         for k in list(sd):
             sd[k] = sd[k].to(dtype)
-        model = NarratorModel(cfg, device="meta")
+        model = model_cls(cfg, device="meta")
         model.load_state_dict(sd, strict=True, assign=True)
+        if kimi:
+            model.prompt_ids = torch.randint(0, cfg.lm.vocab_size, (cfg.prompt_len,), generator=gen, device=device)
         return model.to(device).eval()
-    gen = torch.Generator(device).manual_seed(rng_seed)
-    return NarratorModel(cfg, generator=gen, device=device).to(dtype).eval()
+    return model_cls(cfg, generator=gen, device=device).to(dtype).eval()
 
 
 def build_train_config(cfg: ExperimentConfig) -> TrainConfig:

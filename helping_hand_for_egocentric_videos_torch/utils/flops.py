@@ -142,3 +142,56 @@ def narrator_flops_per_clip(cfg) -> float:
     decode = sum(gpt2_token_flops(cfg.lm, p + 1, m) for p in range(cfg.max_text_length - 1))
     return (vision_fwd_flops(cfg.visual) + narrator_pool_flops(cfg) + narrator_cross_kv_flops(cfg)
             + cfg.num_return_sequences * decode)
+
+
+def _kimi_mlp_token_flops(lm, i: int) -> float:
+    """Layer ``i``'s MLP of one token (models/kimi_lm.py): the dense SwiGLU,
+    or the router and the 6 routed and 2 shared experts' SwiGLU."""
+    if i < lm.first_k_dense_replace:
+        return 6.0 * lm.hidden_size * lm.intermediate_size
+    return (2.0 * lm.hidden_size * lm.n_routed_experts
+            + (lm.num_experts_per_tok + lm.n_shared_experts) * 6.0 * lm.hidden_size * lm.moe_intermediate_size)
+
+
+def _kimi_proj_token_flops(lm) -> float:
+    """q_proj, kv_a_proj_with_mqa and o_proj of one token."""
+    return 2.0 * lm.hidden_size * (lm.num_attention_heads * lm.q_head_dim + lm.latent_dim
+                                   + lm.num_attention_heads * lm.v_head_dim)
+
+
+def kimivl_prefill_flops(cfg) -> float:
+    """One clip's prefix of ``cfg.prefix_len`` positions through Kimi-VL's
+    language model (``kimi_lm.prefill``): explicit MLA, causal (position i
+    over i + 1 keys), every layer but the last, which makes its latents
+    alone."""
+    lm, p = cfg.lm, cfg.prefix_len
+    kv_b = 2.0 * lm.kv_lora_rank * lm.num_attention_heads * (lm.qk_nope_head_dim + lm.v_head_dim)
+    attn = 2.0 * lm.num_attention_heads * (lm.q_head_dim + lm.v_head_dim) * p * (p + 1) / 2
+    total = sum(p * (_kimi_proj_token_flops(lm) + kv_b + _kimi_mlp_token_flops(lm, i)) + attn
+                for i in range(lm.num_hidden_layers - 1))
+    return total + p * 2.0 * lm.hidden_size * lm.latent_dim
+
+
+def kimivl_decode_token_flops(lm, keys: int) -> float:
+    """One sequence's token at a decode step (``kimi_lm.decode_step``):
+    absorbed MLA over ``keys`` positions (q_nope . W_uk, scores over the 576
+    latent columns, the weighted sum of the 512-wide latents, W_uv), the
+    MLP or the experts, and ``lm_head``."""
+    absorb = 4.0 * lm.num_attention_heads * lm.kv_lora_rank * lm.qk_nope_head_dim
+    attn = 2.0 * lm.num_attention_heads * keys * (lm.latent_dim + lm.kv_lora_rank)
+    layers = sum(_kimi_proj_token_flops(lm) + absorb + attn + _kimi_mlp_token_flops(lm, i)
+                 for i in range(lm.num_hidden_layers))
+    return layers + 2.0 * lm.hidden_size * lm.vocab_size
+
+
+def kimivl_flops_per_clip(cfg) -> float:
+    """One clip narrated by Kimi-VL's language model
+    (``KimiNarratorModel.narrate``): the tower, the projector (LayerNorm,
+    2 x 2 merge, two linears over its visual tokens), the prefix's prefill,
+    and R sequences decoded for ``max_text_length - 1`` steps, step ``p``
+    over ``prefix_len + p + 1`` keys."""
+    wide = cfg.visual.width * cfg.merge**2
+    projector = cfg.visual_tokens * (2.0 * wide * wide + 2.0 * wide * cfg.lm.hidden_size)
+    decode = sum(kimivl_decode_token_flops(cfg.lm, cfg.prefix_len + p + 1) for p in range(cfg.max_text_length - 1))
+    return (vision_fwd_flops(cfg.visual) + projector + kimivl_prefill_flops(cfg)
+            + cfg.num_return_sequences * decode)

@@ -43,7 +43,7 @@ import torch
 from torch.autograd import profiler as _autograd_profiler
 from torch.autograd.profiler import record_function
 
-__all__ = ["COUNTERS", "SPANS", "count", "cuda_ms", "device_ms", "kernel_events", "named_kernels", "span", "spans",
+__all__ = ["COUNTERS", "SPANS", "active", "count", "cuda_ms", "device_ms", "kernel_events", "named_kernels", "span", "spans",
            "trace", "top_ops"]
 
 # Every span's name and the layer it marks. The step's five phases (the
@@ -65,10 +65,12 @@ SPANS = {
     "hh.eval.decoder": "models/obj_decoder.py (decoder_forward, txt_proj, obj_proj)",
     "hh.data.item": "data/ (PrefetchLoader, read_clip_chunked, pinned_put)",
     "hh.narrate.tower": "models/narrator.py (the preprocess and the visual tower at 336 px)",
-    "hh.narrate.prefill": "models/narrator.py (the attention pooler, each cross layer's keys and values)",
-    "hh.narrate.decode": "models/gpt2.py (a decode step's blocks and lm_head)",
+    "hh.narrate.prefill": "models/narrator.py (GPT-2: the attention pooler, each cross layer's keys and values; "
+                          "Kimi-VL: the projector and the prefix's latents, models/kimi_lm.py::prefill)",
+    "hh.narrate.decode": "models/gpt2.py, models/kimi_lm.py (a decode step's blocks and lm_head)",
     "hh.narrate.decode.attn": "models/gpt2.py (an eager decode step's self- and cross-attention calls)",
     "hh.narrate.sample": "ops/sampling.py (temperature, top-p, the draw)",
+    "hh.narrate.moe": "models/kimi_lm.py (an eager expert layer: the router, the sort, the grouped GEMMs)",
 }
 
 # Every counter's name and what it counts, summed over a profiler session.
@@ -79,6 +81,8 @@ COUNTERS = {
     "hh.narrate.decode_attn_kernel_calls": "decode attention calls made by the hand-written kernel (ops/decode_attention.py, csrc/decode_attention.cu), replayed ones included",
     "hh.narrate.self_cache_bytes": "bytes of the self-attention caches allocated, one a narrated batch",
     "hh.narrate.cross_cache_bytes": "bytes of the cross-attention caches allocated, one a narrated batch",
+    "hh.narrate.expert_rows": "token-expert rows routed to Kimi-VL's experts (tokens x 6 a MoE layer), prefill and decode",
+    "hh.narrate.experts_hit": "distinct routed experts hit, summed over the MoE layers of every decode step (read from the device under a profiler only)",
 }
 
 _NULL = contextlib.nullcontext()
@@ -99,6 +103,12 @@ def span(name: str, device=None):
         _new_session = True
         return _NULL
     return _Span(name, device)
+
+
+def active() -> bool:
+    """Whether a torch profiler runs: what ``span`` and ``count`` record
+    under. Work that only feeds a counter is done under it alone."""
+    return bool(_autograd_profiler._is_profiler_enabled)
 
 
 def _entry(name: str, kind) -> dict:

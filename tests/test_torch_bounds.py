@@ -1,7 +1,9 @@
 """The kernels' rooflines (``ops/bounds.py``) against the "Bound ms" column
 of PERF.md's table of kernels (section 6), at its printed precision: the
 H100 SXM's peaks, bf16, N = 256 patches a frame (K8: the narrator's 640
-sequences x 25 heads, 64 clips of 10), dh = 64. Each of these
+sequences x 25 heads, 64 clips of 10; K7 at GPT-2's 50257 words and
+Kimi-VL's 163840; K9 at Kimi-VL's 640 sequences x 16 heads over a prefix
+of 600 and a tail of 1, 33 or 77), dh = 64. Each of these
 calls moves more bytes than the card's rate lets it compute, so each is
 bound by bytes."""
 
@@ -10,6 +12,7 @@ import pytest
 from helping_hand_for_egocentric_videos_torch.ops.bounds import (
     attention_bound_ms,
     decode_attention_bound_ms,
+    latent_softmax_bound_ms,
     rows_bound_ms,
     sampler_bound_ms,
 )
@@ -44,10 +47,14 @@ CASES = {  # id: (bound, the printed ms)
     "K6-time-1x128": (_attention("time", 1, 128), 0.0805),
     "K7-640x50257": (sampler_bound_ms(640, 50257, PEAKS), 0.0384),
     "K7-640x97": (sampler_bound_ms(640, 97, PEAKS), 0.0001),
+    "K7-640x163840": (sampler_bound_ms(640, 163840, PEAKS), 0.1252),
     "K8-self-640x25-77keys": (decode_attention_bound_ms("self", 640, 25, 77, DH, "bfloat16", PEAKS), 0.0954),
     "K8-self-640x25-33keys": (decode_attention_bound_ms("self", 640, 25, 33, DH, "bfloat16", PEAKS), 0.0416),
     "K8-self-640x25-1key": (decode_attention_bound_ms("self", 640, 25, 1, DH, "bfloat16", PEAKS), 0.0024),
     "K8-cross-64x10-256keys": (decode_attention_bound_ms("cross", 640, 25, 256, DH, "bfloat16", PEAKS, r=10), 0.0325),
+    "K9-10240x600+1": (latent_softmax_bound_ms(10240, 600, 1, PEAKS), 0.0110),
+    "K9-10240x600+33": (latent_softmax_bound_ms(10240, 600, 33, PEAKS), 0.0116),
+    "K9-10240x600+77": (latent_softmax_bound_ms(10240, 600, 77, PEAKS), 0.0124),
     "K1-space-16x4-H8": (_attention("space", 16, 4, heads=8), 0.0201),
     "K2-time-16x4-H8": (_attention("time", 16, 4, heads=8), 0.0226),
     "K1-space-8x16-H8": (_attention("space", 8, 16, heads=8), 0.0402),

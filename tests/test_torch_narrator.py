@@ -509,8 +509,8 @@ def test_sampler_kernel_at_the_tiny_vocabulary(cuda_device, temperature, top_p):
     scores, edge = sampling.nucleus_threshold_ref(logits, temperature, top_p)
     assert _parts_at_the_edge(scores >= thr.cpu()[:, None], scores >= edge[:, None], scores, top_p)
     assert (ids == sampling.sample_next_ref(logits, temperature, top_p, 12345)).float().mean() >= 0.98
-    wide = torch.zeros(1, sampling.MAX_VOCAB + 1, device=cuda_device)
-    with pytest.raises(ValueError, match=str(sampling.MAX_VOCAB)):
+    wide = torch.zeros(1, sampling.MAX_WIDE_VOCAB + 1, device=cuda_device)
+    with pytest.raises(ValueError, match=str(sampling.MAX_WIDE_VOCAB)):
         sampling.nucleus_sample(wide, 1.0, 0.9, seed)
     with pytest.raises(TypeError):
         sampling.nucleus_sample(logits.to(cuda_device, torch.float64), 1.0, 0.9, seed)

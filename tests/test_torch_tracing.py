@@ -429,3 +429,62 @@ def test_every_counter_is_catalogued_used_and_named_in_perf_md():
     assert used == set(profiling.COUNTERS) and not used & set(profiling.SPANS)
     perf = (ROOT / "PERF.md").read_text()
     assert [n for n in profiling.COUNTERS if f"`{n}`" not in perf] == []
+
+
+# ------------------------------------------------------------ Kimi-VL's narrator
+
+
+def kimi_model():
+    from helping_hand_for_egocentric_videos_torch.models.narrator import KimiNarratorModel, kimi_tiny_config
+
+    return KimiNarratorModel(kimi_tiny_config(), generator=torch.Generator().manual_seed(0)).eval()
+
+
+def test_kimivl_narrate_spans_nest_and_count_experts(tmp_path):
+    """One batch of Kimi-VL's narrator: the tower, the prefill with an
+    ``hh.narrate.moe`` range for each of its MoE layers, then each decode
+    step's range (an ``hh.narrate.moe`` range a MoE layer inside it, the
+    steps being eager on the CPU) followed by its sampling; the counters
+    count the token-expert rows and the routed experts each step hit."""
+    model = kimi_model()
+    video = narrator_clips(model)
+    model.narrate(video, torch.Generator().manual_seed(1))  # untraced: the profiler's previous table is dropped
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        model.narrate(video, torch.Generator().manual_seed(1))
+    cfg, lm = model.cfg, model.cfg.lm
+    steps, n = cfg.max_text_length - 1, 2 * cfg.num_return_sequences
+    ev = ranges(prof, tmp_path, "hh.narrate.")
+    top = [e for e in ev if e["name"] != "hh.narrate.moe"]
+    assert [e["name"] for e in top] == ["hh.narrate.tower", "hh.narrate.prefill"] + [
+        "hh.narrate.decode", "hh.narrate.sample"] * steps
+    moe = [e for e in ev if e["name"] == "hh.narrate.moe"]
+    for outer, want in [(top[1], lm.moe_layers - 1)] + [(d, lm.moe_layers) for d in top[2::2]]:
+        inside = [m for m in moe if outer["ts"] <= m["ts"] and m["ts"] + m["dur"] <= outer["ts"] + outer["dur"]]
+        assert len(inside) == want
+    got = profiling.spans()
+    k = lm.num_experts_per_tok
+    assert got["hh.narrate.moe"]["count"] == len(moe) == lm.moe_layers - 1 + steps * lm.moe_layers
+    assert got["hh.narrate.expert_rows"]["count"] == k * (2 * cfg.prefix_len * (lm.moe_layers - 1)
+                                                          + steps * n * lm.moe_layers)
+    hits = got["hh.narrate.experts_hit"]["count"]
+    assert steps * lm.moe_layers <= hits <= steps * lm.moe_layers * lm.n_routed_experts
+    assert got["hh.narrate.tokens"]["count"] == steps * n
+
+
+def test_kimivl_narrate_without_profiler_enters_no_record_function(monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) entered with no profiler")
+
+    monkeypatch.setattr(profiling, "record_function", refuse)
+    model = kimi_model()
+    model.narrate(narrator_clips(model), torch.Generator().manual_seed(2))
+
+
+def test_profiler_changes_no_kimivl_narration():
+    model = kimi_model()
+    video = narrator_clips(model, seed=3)
+    off = model.narrate(video, torch.Generator().manual_seed(4))
+    with profile(activities=[ProfilerActivity.CPU]):
+        on = model.narrate(video, torch.Generator().manual_seed(4))
+    assert profiling.spans()["hh.narrate.experts_hit"]["count"] > 0
+    assert torch.equal(off, on)
